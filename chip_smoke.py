@@ -6,19 +6,31 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from pbrt_tpu_torch/csrc/, holds each kernel
-against its plain torch version on the card at the main path's shapes,
-renders the 135k-triangle bench scene (wide pipeline, kernel K2) and a
-small mixed-material scene (flat t-pass, kernel K1) through the CLI
-entry point, checks the images, and prints one JSON line per the
-contract below. Every phase raises on failure; the script then exits
-non-zero and prints no result. It needs no network and no JAX.
+against its plain torch version on the card at the main path's shapes
+(K2 on every wave of three 1024^2 ray sets, traversed whole and cut into
+the render's 65,536-ray traversals), renders the 135k-triangle bench
+scene (wide pipeline, kernel K2) and a small mixed-material scene (flat
+t-pass, kernel K1) through the CLI entry point, checks the images,
+renders the bench scene once more with CUDA events around every K2
+launch, and prints one JSON line per the contract below. Every phase
+raises on failure; the script then exits non-zero and prints no result.
+It needs no network and no JAX.
+
+    python3 chip_smoke.py --profile   # also: bench render under torch.profiler
 
 Output, in order: device line (nvidia-smi name and power limit, torch
 and CUDA versions), build report, kernel comparisons, renders, then
   {"kernels": [{"name", "route", "source", "replaces", "launches",
-                "max_abs_err", "ms", "plain_ms"}, ...]}
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "pairs", "tests", ...}, ...]}
   <nvidia-smi name, power.limit>
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
+
+Bounds: a Moller-Trumbore test is MT_FLOPS float32 operations (the count
+in csrc/bvh_sweep.cu); the bound is the larger of operations over the
+H100 SXM's float32 peak and the bytes that must move (each input read
+once, each output written once; for K2 the leaf blocks this run's pair
+lists name) over its HBM rate.
 """
 from __future__ import annotations
 
@@ -35,6 +47,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 T_RTOL = 1e-5        # kernel vs plain: t within 1e-5 relative, prim identical
 BENCH_RES = 1024
 SMALL_RES = 256
+RENDER_RAYS = 1 << 16  # rays per traversal in the render (renderers/driver.py tile)
+MT_FLOPS = 46          # float32 operations of one Moller-Trumbore test
+PEAK_F32 = 67e12       # H100 SXM float32 outside the tensor cores, FLOP/s (data sheet)
+PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (data sheet)
 
 
 def log(msg):
@@ -134,6 +150,12 @@ def cuda_ms(fn, iters=5, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def bound(flops, nbytes):
+    """-> (least ms for the work on the card, what sets it)."""
+    f, b = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (f, "operations") if f >= b else (b, "bytes")
+
+
 def compare(name, t, p, t_ref, p_ref):
     """prim identical, t within T_RTOL relative on hits -> max |dt|."""
     import torch
@@ -186,19 +208,25 @@ def phase_k1(device):
     err = compare("K1 tri_t_pass_kernel vs plain (65536 rays x 4096 tris)", t, p, t_ref, p_ref)
     ms = cuda_ms(lambda: k1.tri_t_pass_cuda(rays8, soa.tris9, soa.n), iters=20)
     plain_ms = cuda_ms(lambda: k1.tri_t_pass_plain(rays8, soa.tris9, soa.n), iters=3)
-    log(f"  K1 time: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    tests = 65536 * 4096
+    b_ms, b_by = bound(tests * MT_FLOPS, rays8.numel() * 4 + soa.tris9.numel() * 4 + 65536 * 8)
+    log(f"  K1 time: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), {b_ms / ms:.1%} of bound")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "pairs": (65536 // 1024) * (4096 // k1.TB), "tests": tests}
 
 
 class SweepRecorder:
     """Stands in for bvh_cuda.wide_sweep during the K2 comparison: every
     wave's pair list goes through the plain version (on a copy of the
-    accumulators) and the kernel, which must agree; both are timed."""
+    accumulators) and the kernel, which must agree; both are timed, and
+    each wave's bound is computed from its pair list."""
 
     def __init__(self, bvh_cuda):
         self.m = bvh_cuda
         self.ms = self.plain_ms = self.max_err = 0.0
-        self.waves = self.pairs = 0
+        self.waves = self.pairs = self.t_bits_differ = self.max_per_tile = 0
+        self.flops_ms = self.bytes_ms = self.bound_ms = self.mean_per_tile = 0.0
 
     def __call__(self, pair_block, start, count, rays8, tris16, sentinel, t_acc, p_acc):
         import torch
@@ -208,6 +236,7 @@ class SweepRecorder:
         ev[0].record()
         self.m.wide_sweep_plain(pair_block, start, count, rays8, tris16, sentinel, t_ref, p_ref)
         ev[1].record()
+        torch.cuda._sleep(1_000_000)  # keeps the device busy while the wrapper enqueues
         ev[2].record()
         self.m.wide_sweep_cuda(pair_block, start, count, rays8, tris16, sentinel, t_acc, p_acc)
         ev[3].record()
@@ -215,7 +244,21 @@ class SweepRecorder:
         self.plain_ms += ev[0].elapsed_time(ev[1])
         self.ms += ev[2].elapsed_time(ev[3])
         self.waves += 1
-        self.pairs += int(count.sum())
+        n = int(count.sum())
+        blocks = pair_block[:n]
+        real = blocks[blocks != sentinel]
+        self.pairs += int(real.numel())
+        self.max_per_tile = max(self.max_per_tile, int(count.max()))
+        self.mean_per_tile += n / count.numel()
+        tests = int(real.numel()) * 1024 * 128
+        nbytes = (int(torch.unique(real).numel()) * 9 * 128 * 4       # leaf blocks named
+                  + int((count > 0).sum()) * 1024 * (32 + 2 * 8)      # rays, t/prim in and out
+                  + n * 4 + count.numel() * 8)                        # the pair list
+        f_ms, b_ms = tests * MT_FLOPS / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        self.flops_ms += f_ms
+        self.bytes_ms += b_ms
+        self.bound_ms += max(f_ms, b_ms)
+        self.t_bits_differ += int((t_acc.view(torch.int32) != t_ref.view(torch.int32)).sum())
         if not torch.equal(p_acc, p_ref):
             raise RuntimeError(f"K2 wave {self.waves}: prim differs on "
                                f"{int((p_acc != p_ref).sum())} rays")
@@ -228,10 +271,65 @@ class SweepRecorder:
         return t_acc, p_acc
 
 
+    def summary(self):
+        return {"waves": self.waves, "pairs": self.pairs, "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": "operations" if self.flops_ms >= self.bytes_ms else "bytes",
+                "max_pairs_per_tile": self.max_per_tile,
+                "mean_pairs_per_tile": self.mean_per_tile / max(self.waves, 1),
+                "max_abs_err": self.max_err, "t_bits_differ": self.t_bits_differ}
+
+
+class LaunchTimer:
+    """Stands in for bvh_cuda.wide_sweep in a render: CUDA events around
+    each K2 launch, read after the render (no sync during it). An event
+    pair spans from the wrapper's call to the kernel's end, so it also
+    holds the wrapper's host time whenever the device waits on the host."""
+
+    def __init__(self, bvh_cuda):
+        self.m = bvh_cuda
+        self.events = []
+
+    def __call__(self, *args):
+        import torch
+
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.m.wide_sweep_cuda(*args)
+        b.record()
+        self.events.append((a, b))
+        return out
+
+    def total_ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def traverse(bvh_cuda, wb, o, d, tmin, tmax, per, **kw):
+    """wide_t_pass over the rays in traversals of `per` rays, every wave
+    held against the plain version -> (SweepRecorder, t, prim)."""
+    import torch
+
+    rec = SweepRecorder(bvh_cuda)
+    real_sweep = bvh_cuda.wide_sweep
+    try:
+        bvh_cuda.wide_sweep = rec
+        out = [bvh_cuda.wide_t_pass(wb, o[s:s + per], d[s:s + per], tmin[s:s + per],
+                                    tmax[s:s + per], **kw)
+               for s in range(0, o.shape[0], per)]
+    finally:
+        bvh_cuda.wide_sweep = real_sweep
+    return rec, torch.cat([t for t, _ in out]), torch.cat([p for _, p in out])
+
+
 def phase_k2(device):
     """K2 vs its plain version on the same pair lists (every wave), at
     the bench geometry, for camera, shadow (any-hit) and incoherent
-    rays; then wide_t_pass vs plain brute force on an 8192-ray subset."""
+    rays, each traversed whole (1M rays) and in the render's 65,536-ray
+    traversals; then wide_t_pass vs plain brute force on an 8192-ray
+    subset."""
     import torch
     from pbrt_tpu_torch.accel.bvh import build_bvh
     from pbrt_tpu_torch.accel.intersect import SceneGeom, t_pass_brute
@@ -256,37 +354,34 @@ def phase_k2(device):
     inf = torch.full((n,), float("inf"), device=device)
 
     results = {}
-    real_sweep = bvh_cuda.wide_sweep
-    try:
-        rec = SweepRecorder(bvh_cuda)
-        bvh_cuda.wide_sweep = rec
-        t_cam, p_cam = bvh_cuda.wide_t_pass(wb, cam_o, cam_d, zeros, inf, coherent=True)
-        results["camera"] = rec
-        # shadow rays from the primary hits toward a light (bench.py)
-        hit_p = cam_o + torch.where(p_cam >= 0, t_cam, 0.0)[:, None] * cam_d
-        sd = torch.tensor([0.0, 6.0, 0.0], device=device)[None, :] - hit_p
-        sdist = torch.sqrt(torch.sum(sd * sd, -1))
-        sdir = sd / torch.clamp(sdist, min=1e-9)[:, None]
-        s_o = hit_p + sdir * 1e-3
-        s_tmax = torch.where(p_cam >= 0, sdist * 0.999, -1.0)
-        rec = SweepRecorder(bvh_cuda)
-        bvh_cuda.wide_sweep = rec
-        bvh_cuda.wide_t_pass(wb, s_o, sdir, zeros, s_tmax, any_hit=True, coherent=True)
-        results["shadow"] = rec
-        rng = np.random.RandomState(0)
-        i_o = torch.as_tensor(rng.rand(n, 3).astype(np.float32) * 6 - 3, device=device)
-        i_d = rng.randn(n, 3).astype(np.float32)
-        i_d = torch.as_tensor(i_d / np.linalg.norm(i_d, axis=-1, keepdims=True), device=device)
-        rec = SweepRecorder(bvh_cuda)
-        bvh_cuda.wide_sweep = rec
-        bvh_cuda.wide_t_pass(wb, i_o, i_d, zeros, inf)
-        results["incoherent"] = rec
-    finally:
-        bvh_cuda.wide_sweep = real_sweep
-    for name, r in results.items():
-        log(f"  K2 {name} rays ({n}): {r.waves} waves, {r.pairs} (tile, block) pairs, "
-            f"kernel {r.ms:.3f} ms, plain torch {r.plain_ms:.3f} ms, prim identical, "
-            f"max |dt| = {r.max_err:.3g}")
+    for per in (n, RENDER_RAYS):
+        rec, t_cam, p_cam = traverse(bvh_cuda, wb, cam_o, cam_d, zeros, inf, per,
+                                     coherent=True)
+        results[("camera", per)] = rec
+        if per == n:
+            # shadow rays from the primary hits toward a light (bench.py)
+            hit_p = cam_o + torch.where(p_cam >= 0, t_cam, 0.0)[:, None] * cam_d
+            sd = torch.tensor([0.0, 6.0, 0.0], device=device)[None, :] - hit_p
+            sdist = torch.sqrt(torch.sum(sd * sd, -1))
+            sdir = sd / torch.clamp(sdist, min=1e-9)[:, None]
+            s_o = hit_p + sdir * 1e-3
+            s_tmax = torch.where(p_cam >= 0, sdist * 0.999, -1.0)
+            rng = np.random.RandomState(0)
+            i_o = torch.as_tensor(rng.rand(n, 3).astype(np.float32) * 6 - 3, device=device)
+            i_d = rng.randn(n, 3).astype(np.float32)
+            i_d = torch.as_tensor(i_d / np.linalg.norm(i_d, axis=-1, keepdims=True),
+                                  device=device)
+        results[("shadow", per)], _, _ = traverse(bvh_cuda, wb, s_o, sdir, zeros, s_tmax, per,
+                                                  any_hit=True, coherent=True)
+        results[("incoherent", per)], _, _ = traverse(bvh_cuda, wb, i_o, i_d, zeros, inf, per)
+    for (name, per), r in results.items():
+        m = r.summary()
+        log(f"  K2 {name} rays ({n}, traversals of {per}): {m['waves']} waves, {m['pairs']} "
+            f"(tile, block) pairs, per tile per wave max {m['max_pairs_per_tile']} mean "
+            f"{m['mean_pairs_per_tile']:.3f}; kernel {m['ms']:.3f} ms, plain torch "
+            f"{m['plain_ms']:.3f} ms, bound {m['bound_ms']:.3f} ms ({m['bound_by']}), "
+            f"{m['bound_ms'] / m['ms']:.1%} of bound; prim identical, max |dt| = "
+            f"{m['max_abs_err']:.3g}, rays with t bits differing {m['t_bits_differ']}")
 
     # wide_t_pass (kernel) vs plain brute force on a subset
     geom_cols = [torch.as_tensor(x, device=device) for x in (v0, e1, e2)]
@@ -299,9 +394,55 @@ def phase_k2(device):
         geom = SceneGeom(*geom_cols, None, None, None, None, None, None, None, None)
         t_b, p_b = t_pass_brute(geom, Ray(o_s, d_s, zeros[:k], inf[:k], zeros[:k]))
         compare(f"wide_t_pass vs plain brute force ({name}, {k} rays)", t_w, p_w, t_b, p_b)
-    cam = results["camera"]
-    max_err = max(r.max_err for r in results.values())
-    return max_err, cam.ms, cam.plain_ms
+    by_set = {f"{name}_{per}": r.summary() for (name, per), r in results.items()}
+    render = [r.summary() for (_, per), r in results.items() if per == RENDER_RAYS]
+    f_ms = sum(r.flops_ms for (_, per), r in results.items() if per == RENDER_RAYS)
+    b_ms = sum(r.bytes_ms for (_, per), r in results.items() if per == RENDER_RAYS)
+    pairs = sum(m["pairs"] for m in render)
+    return {"max_abs_err": max(r.max_err for r in results.values()),
+            "ms": sum(m["ms"] for m in render), "plain_ms": sum(m["plain_ms"] for m in render),
+            "bound_ms": sum(m["bound_ms"] for m in render),
+            "bound_by": "operations" if f_ms >= b_ms else "bytes",
+            "pairs": pairs, "tests": pairs * 1024 * 128, "by_set": by_set}
+
+
+def profile_render(scene_text, tmp):
+    """One render under torch.profiler: device busy share and K2's share
+    of device time (kernel rows only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render(scene_text, "bench_profiled", tmp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    averages = prof.key_averages()
+    rows = sorted(((e.key, dev_us(e), e.count) for e in averages
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                  key=lambda r: -r[1])
+    busy_ms = sum(us for _, us, _ in rows) / 1e3
+    # wide_sweep_kernel: K2's one-kernel form, for A/B runs against older trees
+    k2_rows = [r for r in rows if "k2_" in r[0] or "wide_sweep" in r[0]]
+    k2_ms = sum(us for _, us, _ in k2_rows) / 1e3
+    n_dev = sum(c for _, _, c in rows)
+    log(f"  wall {wall:.3f} s, device busy {busy_ms:.1f} ms ({busy_ms / 1e3 / wall:.3f} of "
+        f"wall) over {n_dev} device operations, K2 kernels {k2_ms:.1f} ms "
+        f"({k2_ms / max(busy_ms, 1e-9):.3f} of device time)")
+    for key, us, cnt in rows[:10]:
+        log(f"    {us / 1e3:10.2f} ms  {cnt:7d} x  {key[:90]}")
+    host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in averages
+                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
+    log("  host, by self time:")
+    for key, us, cnt in host[:8]:
+        log(f"    {us / 1e3:10.2f} ms  {cnt:7d} x  {key[:90]}")
+    return {"wall_s": wall, "device_busy_ms": busy_ms, "device_ops": n_dev, "k2_ms": k2_ms,
+            "k2_rows": [[k[:60], us / 1e3, c] for k, us, c in k2_rows]}
 
 
 def render(scene_text, out_name, tmp, extra=()):
@@ -325,6 +466,7 @@ def render(scene_text, out_name, tmp, extra=()):
 
 
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -354,32 +496,53 @@ def main():
             log("  " + line.strip())
 
     log("[3] K1 (flat t-pass) vs plain torch")
-    k1_err, k1_ms, k1_plain_ms = phase_k1(device)
+    k1 = phase_k1(device)
     log("[4] K2 (wide-leaf sweep) vs plain torch at the bench geometry")
-    k2_err, k2_ms, k2_plain_ms = phase_k2(device)
+    k2 = phase_k2(device)
 
     from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
 
     with tempfile.TemporaryDirectory() as tmp:
-        # the main path: counts reset here, read after both renders
+        # the main path: counts reset just before each render, read just after
         intersect_cuda.launches = 0
         bvh_cuda.launches = 0
         log(f"[5] bench render {BENCH_RES}x{BENCH_RES}, 1 spp, maxdepth 5")
         img, sec = render(bench_scene_text(BENCH_RES), "bench", tmp)
-        k2_render = bvh_cuda.launches
+        k2["launches"] = bvh_cuda.launches
         log(f"  {sec:.2f} s end to end (parse + compile + BVH build + render), "
             f"{BENCH_RES * BENCH_RES / sec:.0f} camera rays/s, image mean {img.mean():.5f}, "
-            f"K2 launches {k2_render}")
-        if k2_render <= 0:
+            f"K2 launches {k2['launches']}")
+        if k2["launches"] <= 0:
             raise RuntimeError("bench render did not launch K2")
+        intersect_cuda.launches = 0
+        bvh_cuda.launches = 0
         log(f"[6] small render {SMALL_RES}x{SMALL_RES}, 4 spp (matte, plastic, mirror, "
             "glass Vn, triangle area light)")
-        img, sec = render(small_scene_text(SMALL_RES, 4), "small", tmp)
-        launches = {"k1": intersect_cuda.launches, "k2": bvh_cuda.launches}
-        log(f"  {sec:.2f} s end to end, image mean {img.mean():.5f}, "
-            f"K1 launches {launches['k1']}")
-        if launches["k1"] <= 0:
+        img, sec_small = render(small_scene_text(SMALL_RES, 4), "small", tmp)
+        k1["launches"] = intersect_cuda.launches
+        log(f"  {sec_small:.2f} s end to end, image mean {img.mean():.5f}, "
+            f"K1 launches {k1['launches']}")
+        if k1["launches"] <= 0:
             raise RuntimeError("small render did not launch K1")
+
+        # outside the timed render: K2's share of a bench render, by events
+        log("[5b] bench render again, CUDA events around every K2 launch")
+        timer = LaunchTimer(bvh_cuda)
+        real_sweep = bvh_cuda.wide_sweep
+        try:
+            bvh_cuda.wide_sweep = timer
+            _, sec_ev = render(bench_scene_text(BENCH_RES), "bench_events", tmp)
+        finally:
+            bvh_cuda.wide_sweep = real_sweep
+        k2_render_ms = timer.total_ms()
+        k2["bench_render"] = {"seconds": sec, "seconds_with_events": sec_ev,
+                              "k2_event_ms": k2_render_ms, "k2_launches": len(timer.events)}
+        log(f"  {sec_ev:.2f} s end to end (timed render {sec:.2f} s); K2 {k2_render_ms:.1f} ms "
+            f"over {len(timer.events)} launches ({k2_render_ms / max(len(timer.events), 1):.4f} "
+            f"ms per launch, event span)")
+        if "--profile" in sys.argv[1:]:
+            log("[5c] bench render under torch.profiler")
+            k2["bench_render"]["profile"] = profile_render(bench_scene_text(BENCH_RES), tmp)
 
         # the card path against the CPU path (plain twins) on a small input
         log("[7] small render 32x32 on the card vs on the CPU")
@@ -393,17 +556,17 @@ def main():
         if mean_rel > 5e-3 or (rel <= 1e-3).mean() < 0.99:
             raise RuntimeError("card render disagrees with the CPU render")
 
+    # K1: 65,536 rays x 4,096 triangles; K2: the three 1024^2 ray sets in
+    # the render's 65,536-ray traversals (sums over every wave; by_set has
+    # each set at both shapes). No single PyTorch call computes either.
+    log(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": "tri_t_pass_kernel", "route": "cuda",
          "source": "pbrt_tpu_torch/csrc/intersect.cu",
-         "replaces": "pbrt_tpu/ops/intersect_pallas.py:35",
-         "launches": launches["k1"], "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms},
-        {"name": "wide_sweep_kernel", "route": "cuda",
+         "replaces": "pbrt_tpu/ops/intersect_pallas.py:35", "library_ms": None, **k1},
+        {"name": "k2_sweep_kernel", "route": "cuda",
          "source": "pbrt_tpu_torch/csrc/bvh_sweep.cu",
-         "replaces": "pbrt_tpu/ops/bvh_pallas.py:54",
-         "launches": launches["k2"], "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain_ms},
+         "replaces": "pbrt_tpu/ops/bvh_pallas.py:54", "library_ms": None, **k2},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,10 +1,11 @@
 """BVH accelerator: host build, and the t-pass dispatch of the main path.
 
 Port of the parts of pbrt_tpu/accel/bvh.py the main path runs. The
-binary tree comes from the same native C++ builder as the reference
-(pbrt_tpu/native/bvh_builder.cpp, read by path and compiled with g++
-into the port's build directory), then accel/wide_bvh.py collapses it
-into 128-triangle leaf blocks. The dispatch follows the reference's TPU
+binary tree comes from the port's own copy of the reference's native
+C++ builder (csrc/bvh_builder.cpp, byte-identical to the reference's,
+so both packages build the same tree), compiled with g++ into the
+port's build directory; accel/wide_bvh.py then collapses it into
+128-triangle leaf blocks. The dispatch follows the reference's TPU
 branch: scenes with at least WIDE_THRESHOLD triangles use the packet
 pipeline (ops/bvh_cuda.py, kernel K2), smaller ones the flat t-pass
 (ops/intersect_cuda.py, kernel K1).
@@ -24,10 +25,9 @@ from pbrt_tpu_torch.core.error import PbrtError, info
 from pbrt_tpu_torch.core.geometry import Ray
 from pbrt_tpu_torch.accel.intersect import SceneGeom, reconstruct
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-NATIVE_SRC = os.path.join(_REPO, "pbrt_tpu", "native", "bvh_builder.cpp")
-_BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                           "_build")
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NATIVE_SRC = os.path.join(_PKG, "csrc", "bvh_builder.cpp")
+_BUILD_ROOT = os.path.join(_PKG, "_build")
 WIDE_THRESHOLD = 8192
 _LOCK = threading.Lock()
 _LIB = None
@@ -43,8 +43,8 @@ class BVH(NamedTuple):
 
 
 def _load_native():
-    """Compile the shared C++ builder with g++ (same flags as the
-    reference's pbrt_tpu/native loader) and load it with ctypes."""
+    """Compile the C++ builder with g++ (the flags of the reference's
+    native loader) and load it with ctypes."""
     global _LIB
     with _LOCK:
         if _LIB is not None:

@@ -85,7 +85,9 @@ def load_kernels() -> ctypes.CDLL:
         lib.pbrt_tri_t_pass.restype = i
         lib.pbrt_tri_t_pass.argtypes = [vp, i, vp, i, i, vp, vp, vp]
         lib.pbrt_wide_sweep.restype = i
-        lib.pbrt_wide_sweep.argtypes = [vp, vp, vp, i, vp, vp, i, i, vp, vp, vp]
+        lib.pbrt_wide_sweep.argtypes = [vp, vp, vp, i, vp, vp, i, i, vp, vp, vp, vp]
+        lib.pbrt_wide_sweep_scratch_bytes.restype = ctypes.c_longlong
+        lib.pbrt_wide_sweep_scratch_bytes.argtypes = [i]
         _LIB = lib
         return lib
 

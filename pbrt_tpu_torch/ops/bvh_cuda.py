@@ -8,9 +8,12 @@ Port of pbrt_tpu/ops/bvh_pallas.py.
   slab test reduced to entry-sorted per-tile lists (incoherent rays).
   The lists are compacted into a flat tile-grouped pair list.
 
-  Phase B (kernel K2, csrc/bvh_sweep.cu): one thread block per tile
-  sweeps its run of (tile, leaf block) pairs in list order, folding the
-  per-ray (t, slot) minimum into the tile's accumulators.
+  Phase B (kernel K2, csrc/bvh_sweep.cu): each tile's run of (tile,
+  leaf block) pairs is cut into items (128-ray slice x SWEEP_CHUNK
+  pairs) that a persistent grid sweeps in any order; each ray's
+  candidates merge through the order-preserving keys of `pack_keys`,
+  and `merge_keys` applies the winner: the same result as folding the
+  run in list order (`wide_sweep_plain`).
 
   Waves: A fills lists -> B sweeps -> the per-tile t bound tightens ->
   A resumes. The wave loop is a Python loop with one host sync per
@@ -32,26 +35,21 @@ MAX_WAVES = 64
 CULL_BYTES = 512 << 20  # per [rays, blocks] temporary of the per-ray cull
 PLAIN_TILES = 64        # tiles per step of the plain sweep (bounds its temporaries)
 
+SWEEP_CHUNK = 2         # pairs per K2 work item (csrc/bvh_sweep.cu K2_CHUNK)
+KEY_EMPTY = 0x7F7F7F7F7F7F7F7F  # a ray's key before any candidate; above every candidate's
+MAX_RUN = 1 << 24       # pair positions a key can hold
+
 launches = 0  # K2 kernel launches in this process
 
 
 # ---------------------------------------------------------------------------
 # Phase B: the pair sweep
 
-def wide_sweep_plain(pair_block, tile_start, tile_count, rays8, tris16,
-                     sentinel_block: int, t_acc, p_acc):
-    """Plain torch twin of K2; updates t_acc/p_acc [T*TILE] in place.
-    Pair j of every tile is swept in step j, so each tile's pairs fold
-    in list order exactly as in the kernel."""
-    from pbrt_tpu_torch.accel.intersect import mt_t
-
+def _pair_steps(pair_block, tile_start, tile_count, sentinel_block: int):
+    """(j, tiles, blocks) for each position j of the tiles' runs: the
+    tiles whose run has a real (non-sentinel) block at j, in batches of
+    at most PLAIN_TILES."""
     T = tile_start.shape[0]
-    dev = rays8.device
-    big = torch.full((), BIG, device=dev)
-    rays = rays8.view(T, TILE, 8)
-    t_view = t_acc.view(T, TILE)
-    p_view = p_acc.view(T, TILE)
-    slots = torch.arange(LEAF_W, device=dev)
     max_n = int(tile_count.max()) if T else 0
     for j in range(max_n):
         tiles = torch.nonzero(tile_count > j)[:, 0]
@@ -59,20 +57,99 @@ def wide_sweep_plain(pair_block, tile_start, tile_count, rays8, tris16,
         keep = blocks != sentinel_block
         tiles, blocks = tiles[keep], blocks[keep]
         for s in range(0, tiles.shape[0], PLAIN_TILES):
-            tt, bb = tiles[s:s + PLAIN_TILES], blocks[s:s + PLAIN_TILES]
-            ry = rays[tt]                                   # [n, TILE, 8]
-            cols = bb[:, None] * LEAF_W + slots[None, :]    # [n, LEAF_W]
-            tri = [tris16[c][cols][:, None, :] for c in range(9)]
-            ray = [ry[:, :, i:i + 1] for i in range(8)]
-            t, valid = mt_t(*tri, *ray)
-            t = torch.where(valid, t, big)
-            t_blk, idx = torch.min(t, -1)                  # [n, TILE]
-            acc_t, acc_p = t_view[tt], p_view[tt]
-            better = t_blk < acc_t
-            t_view[tt] = torch.where(better, t_blk, acc_t)
-            p_view[tt] = torch.where(better, (bb[:, None] * LEAF_W + idx).to(torch.int32),
-                                     acc_p)
+            yield j, tiles[s:s + PLAIN_TILES], blocks[s:s + PLAIN_TILES]
+
+
+def _block_min(rays8, tris16, tiles, blocks):
+    """Per ray of each tile, the minimum t over its leaf block (BIG when
+    nothing is hit) and its slot, lowest slot on ties: ([n, TILE] f32,
+    [n, TILE] i64)."""
+    from pbrt_tpu_torch.accel.intersect import mt_t
+
+    ry = rays8.view(-1, TILE, 8)[tiles]                          # [n, TILE, 8]
+    cols = blocks[:, None] * LEAF_W + torch.arange(LEAF_W, device=rays8.device)[None, :]
+    tri = [tris16[c][cols][:, None, :] for c in range(9)]
+    t, valid = mt_t(*tri, *(ry[:, :, i:i + 1] for i in range(8)))
+    return torch.min(torch.where(valid, t, torch.full((), BIG, device=rays8.device)), -1)
+
+
+def wide_sweep_plain(pair_block, tile_start, tile_count, rays8, tris16,
+                     sentinel_block: int, t_acc, p_acc):
+    """Plain torch twin of K2; updates t_acc/p_acc [T*TILE] in place.
+    Pair j of every tile is swept in step j, so each tile's pairs fold
+    in list order: a block minimum replaces the accumulator only when
+    strictly smaller."""
+    T = tile_start.shape[0]
+    t_view = t_acc.view(T, TILE)
+    p_view = p_acc.view(T, TILE)
+    for _, tt, bb in _pair_steps(pair_block, tile_start, tile_count, sentinel_block):
+        t_blk, idx = _block_min(rays8, tris16, tt, bb)
+        acc_t, acc_p = t_view[tt], p_view[tt]
+        better = t_blk < acc_t
+        t_view[tt] = torch.where(better, t_blk, acc_t)
+        p_view[tt] = torch.where(better, (bb[:, None] * LEAF_W + idx).to(torch.int32), acc_p)
     return t_acc, p_acc
+
+
+def pack_keys(t, pos, slot):
+    """K2's merge keys (int64) of candidates (t f32, position in the
+    tile's run, slot): order-preserving bits of t with -0.0 taken as
+    +0.0, then pos, then slot, then one bit that keeps a -0.0. The least
+    key of a ray is its first minimum in list order, the candidate the
+    sequential strict '<' fold keeps."""
+    bits = t.contiguous().view(torch.int32)
+    neg_zero = bits == -(1 << 31)
+    i = torch.where(neg_zero, 0, bits)
+    hi = (i ^ ((i >> 31) & 0x7FFFFFFF)).to(torch.int64)
+    lo = (pos.to(torch.int64) << 8) | (slot.to(torch.int64) << 1) | neg_zero.to(torch.int64)
+    return (hi << 32) | lo
+
+
+def unpack_keys(keys):
+    """keys -> (t f32, pos i64, slot i64); the inverse of pack_keys."""
+    hi = (keys >> 32).to(torch.int32)
+    i = hi ^ ((hi >> 31) & 0x7FFFFFFF)
+    lo = keys & 0xFFFFFFFF
+    t = torch.where((lo & 1) == 1, torch.full((), -0.0, device=keys.device),
+                    i.view(torch.float32))
+    return t, lo >> 8, (lo >> 1) & (LEAF_W - 1)
+
+
+def merge_keys(keys, pair_block, tile_start, t_acc, p_acc):
+    """The merge rule of K2 (csrc/bvh_sweep.cu k2_merge_kernel), in
+    place: each ray's least key names its winning candidate, which
+    replaces the accumulator when its t is strictly smaller."""
+    t, pos, slot = unpack_keys(keys)
+    tile = torch.arange(keys.shape[0], device=keys.device) // TILE
+    better = (keys != KEY_EMPTY) & (t < t_acc)
+    at = torch.where(better, tile_start.long()[tile] + pos, 0)
+    prim = (pair_block.long()[at] * LEAF_W + slot).to(torch.int32)
+    t_acc.copy_(torch.where(better, t, t_acc))
+    p_acc.copy_(torch.where(better, prim, p_acc))
+    return t_acc, p_acc
+
+
+def wide_sweep_chunked(pair_block, tile_start, tile_count, rays8, tris16,
+                       sentinel_block: int, t_acc, p_acc, chunk: int, order):
+    """Plain torch model of K2's decomposition; updates t_acc/p_acc in
+    place. Every tile's run is cut into chunks of `chunk` pairs; each
+    chunk yields one key per ray (the least of its candidates' keys), the
+    chunks merge by key minimum in `order` (a permutation of the chunk
+    indices), and merge_keys applies the result.
+    Equals wide_sweep_plain bit for bit whatever the chunk and order."""
+    T = tile_start.shape[0]
+    keys = torch.full((T, TILE), KEY_EMPTY, dtype=torch.int64, device=rays8.device)
+    parts: dict = {}
+    for j, tt, bb in _pair_steps(pair_block, tile_start, tile_count, sentinel_block):
+        t_blk, idx = _block_min(rays8, tris16, tt, bb)
+        if j // chunk not in parts:
+            parts[j // chunk] = torch.full_like(keys, KEY_EMPTY)
+        part = parts[j // chunk]
+        part[tt] = torch.minimum(part[tt], pack_keys(t_blk, torch.full_like(idx, j), idx))
+    for c in order:
+        if c in parts:
+            keys = torch.minimum(keys, parts[c])
+    return merge_keys(keys.view(-1), pair_block, tile_start, t_acc, p_acc)
 
 
 def wide_sweep_cuda(pair_block, tile_start, tile_count, rays8, tris16,
@@ -91,12 +168,20 @@ def wide_sweep_cuda(pair_block, tile_start, tile_count, rays8, tris16,
         raise ValueError(f"tris16: expected [16, k*{LEAF_W}], got {tuple(tris16.shape)}")
     if sentinel_block != tris16.shape[1] // LEAF_W - 1:
         raise ValueError("sentinel_block must be the last block of tris16")
+    if pair_block.numel() >= MAX_RUN:
+        raise ValueError(f"pair_block: at most {MAX_RUN - 1} pairs")
+    if rays8.data_ptr() % 16 or tris16.data_ptr() % 16:
+        raise ValueError("rays8 and tris16 must be 16-byte aligned")
     lib = load_kernels()
+    # freed on return: the caching allocator reuses it only after the
+    # work queued on this stream, K2 included
+    scratch = torch.empty((lib.pbrt_wide_sweep_scratch_bytes(T),), dtype=torch.uint8,
+                          device=rays8.device)
     stream = torch.cuda.current_stream(rays8.device).cuda_stream
     err = lib.pbrt_wide_sweep(pair_block.data_ptr(), tile_start.data_ptr(),
                               tile_count.data_ptr(), T, rays8.data_ptr(),
                               tris16.data_ptr(), tris16.shape[1], sentinel_block,
-                              t_acc.data_ptr(), p_acc.data_ptr(), stream)
+                              t_acc.data_ptr(), p_acc.data_ptr(), scratch.data_ptr(), stream)
     raise_on_launch_error(err, "wide_sweep_kernel")
     launches += 1
     return t_acc, p_acc

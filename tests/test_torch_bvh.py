@@ -119,3 +119,112 @@ def test_wide_t_pass_matches_pallas(wide, coherent, any_hit, monkeypatch):
     _, p_b = j_t_pass_brute(jg, JRay(*(jnp.asarray(x) for x in (o, d, tmin, tmax)),
                                      jnp.zeros(len(o))))
     np.testing.assert_array_equal(p, np.asarray(p_b))
+
+
+# ---------------------------------------------------------------------------
+# K2's decomposition: chunks of a tile's run merged in any order by key
+
+@pytest.fixture(scope="module")
+def adversarial():
+    """The card test's adversarial pair list, cut to 8 tiles, and the
+    sequential fold of wide_sweep_plain over it."""
+    from test_torch_gpu import adversarial_sweep_case
+
+    args, keep = adversarial_sweep_case("cpu", n_tiles=8)
+    *inputs, t0, p0 = args
+    t_ref, p_ref = bvh_cuda.wide_sweep_plain(*inputs, t0.clone(), p0.clone())
+    return inputs, t0, p0, t_ref, p_ref, keep
+
+
+@pytest.mark.parametrize("order", ["reverse", "forward", "shuffle"])
+@pytest.mark.parametrize("chunk", [1, bvh_cuda.SWEEP_CHUNK, 3, MAX_L])
+def test_chunked_merge_matches_sequential_fold(adversarial, chunk, order):
+    """wide_sweep_chunked (the kernel's items and key merge, in torch)
+    equals the sequential fold bit for bit: ties across pairs listed in
+    both orders, a tie with the starting accumulator, sentinel pairs, an
+    empty tile, dead rays and a full MAX_L run."""
+    inputs, t0, p0, t_ref, p_ref, keep = adversarial
+    count = inputs[2]
+    n_chunks = -(-int(count.max()) // chunk)
+    chunks = {"reverse": range(n_chunks - 1, -1, -1), "forward": range(n_chunks),
+              "shuffle": np.random.RandomState(chunk).permutation(n_chunks)}[order]
+    t, p = bvh_cuda.wide_sweep_chunked(*inputs, t0.clone(), p0.clone(), chunk=chunk,
+                                       order=[int(c) for c in chunks])
+    assert torch.equal(p, p_ref)
+    assert torch.equal(t.view(torch.int32), t_ref.view(torch.int32))
+    # the case really holds what it claims
+    tiles_p = p_ref.view(-1, TILE)
+    tiles_t0 = t0.view(-1, TILE)
+    assert int(count[0]) == MAX_L and int(count[5]) == 0
+    assert torch.equal(tiles_p[5], p0.view(-1, TILE)[5])
+    assert bool((p_ref[keep] == 424242).all()) and int(keep.sum()) > 50
+    dead = t0 == -bvh_cuda.BIG
+    assert bool(dead.any()) and torch.equal(p_ref[dead], p0[dead])
+    hit12 = (tiles_p[1] >= 0) & (tiles_p[2] >= 0) & (tiles_t0[1] > 1e29) & (tiles_t0[2] > 1e29)
+    a, b = inputs[0][inputs[1][1]], inputs[0][inputs[1][2]]   # first block of tiles 1 and 2
+    assert int(hit12.sum()) > 100
+    assert bool((tiles_p[1][hit12] // 128 == a).all()) and bool((tiles_p[2][hit12] // 128 == b).all())
+
+
+def test_merge_keys_order_and_roundtrip():
+    """pack_keys orders candidates by (t, pos, slot) with -0.0 == +0.0,
+    and unpack_keys gives back every bit of t."""
+    rng = np.random.RandomState(3)
+    special = np.array([0.0, -0.0, 1e30, -1e30, 1e-40, -1e-40, 1.0, -1.0, 3.4e38, -3.4e38],
+                       np.float32)
+    t = np.concatenate([special, rng.normal(0, 10, 500).astype(np.float32),
+                        rng.choice(special, 200)])
+    pos = rng.randint(0, bvh_cuda.MAX_RUN, t.size)
+    slot = rng.randint(0, 128, t.size)
+    keys = bvh_cuda.pack_keys(torch.as_tensor(t), torch.as_tensor(pos), torch.as_tensor(slot))
+    t2, pos2, slot2 = bvh_cuda.unpack_keys(keys)
+    np.testing.assert_array_equal(t2.numpy().view(np.int32), t.view(np.int32))
+    np.testing.assert_array_equal(pos2.numpy(), pos)
+    np.testing.assert_array_equal(slot2.numpy(), slot)
+    # every candidate (a hit below 1e30, or 1e30) keys below the empty key
+    assert bool((keys[torch.as_tensor(t <= 1e30)] < bvh_cuda.KEY_EMPTY).all())
+    lex = np.lexsort((slot, pos, t + np.float32(0.0)))   # -0.0 + 0.0 == +0.0
+    k = keys.numpy()[lex]
+    assert (np.diff(k) >= 0).all()
+    same = (np.diff(t[lex] + np.float32(0.0)) == 0) & (np.diff(pos[lex]) == 0) & \
+        (np.diff(slot[lex]) == 0)
+    assert ((np.diff(k) == 0) <= same).all()
+
+
+def test_port_builds_with_its_own_builder_source():
+    """In a fresh interpreter the port builds a BVH without importing
+    jax or pbrt_tpu and without opening or running anything under
+    pbrt_tpu/; its builder source is byte-identical to the reference's."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = f"""
+import os, sys
+ref = os.path.join({repo!r}, "pbrt_tpu") + os.sep
+touched = []
+def hook(event, args):
+    if event in ("open", "subprocess.Popen", "os.posix_spawn", "os.exec", "os.system"):
+        if ref in repr(args):
+            touched.append((event, repr(args)[:200]))
+sys.addaudithook(hook)
+import numpy as np
+import pbrt_tpu_torch.main
+from pbrt_tpu_torch.accel import bvh
+rng = np.random.RandomState(0)
+v0, e1, e2 = (rng.normal(size=(40, 3)).astype(np.float32) for _ in range(3))
+tree = bvh.build_bvh(v0, e1, e2, "sah")
+assert tree is not None and len(tree.prim_ids) == 40
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pbrt_tpu")]
+assert not bad, bad
+assert not touched, touched
+assert bvh.NATIVE_SRC.startswith(os.path.join({repo!r}, "pbrt_tpu_torch") + os.sep)
+copy = open(bvh.NATIVE_SRC, "rb").read()
+assert copy == open(ref + "native/bvh_builder.cpp", "rb").read()
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=repo)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]

@@ -45,6 +45,78 @@ def _rays(n, seed, device):
     return [torch.as_tensor(x, device=device) for x in (o, d, np.zeros(n, np.float32), tmax)]
 
 
+def adversarial_sweep_case(device, n_tiles=64, seed=11):
+    """K2 inputs at the render's shape (64 tiles of 1024 rays per
+    traversal) built to catch a merge that breaks list order:
+
+      tile 0: a full MAX_L run of distinct leaf blocks;
+      tiles 1, 2: identical blocks A and B (A also repeats a triangle in
+        two slots), listed A B and B A, so every hit ties across pairs;
+      tile 3: one block whose hit t equals the starting accumulator of
+        half its rays, which must keep their prim;
+      tile 4: sentinel, real, sentinel;  tile 5: empty;
+      the rest: 0 or 1 pair.
+
+    Every tile has dead rays (t_acc = -1e30), rays with a short tmax and
+    rays with a finite starting t. Returns the arguments of wide_sweep
+    on `device`, with the rays of tile 3 that must keep their prim."""
+    from pbrt_tpu_torch.accel.wide_bvh import LEAF_W, MAX_L, TILE
+    from pbrt_tpu_torch.ops import bvh_cuda
+
+    rng = np.random.RandomState(seed)
+    n_blocks = MAX_L + 6
+    sentinel = n_blocks
+    n = n_blocks * LEAF_W
+    L = rng.uniform(0.3, 3.0, n)
+    v0 = np.stack([-L + rng.uniform(-0.5, 0.5, n), -L + rng.uniform(-0.5, 0.5, n),
+                   rng.uniform(-5, 5, n)], -1)
+    e1 = np.stack([3 * L, np.zeros(n), rng.uniform(-0.5, 0.5, n)], -1)
+    e2 = np.stack([np.zeros(n), 3 * L, rng.uniform(-0.5, 0.5, n)], -1)
+    tris16 = np.zeros((16, (n_blocks + 1) * LEAF_W), np.float32)
+    tris16[0:9, :n] = np.concatenate([v0, e1, e2], -1).T
+    blk_a, blk_b = n_blocks - 2, n_blocks - 1
+    a = slice(blk_a * LEAF_W, (blk_a + 1) * LEAF_W)
+    tris16[:, a.start + 77] = tris16[:, a.start + 13]
+    tris16[:, blk_b * LEAF_W:(blk_b + 1) * LEAF_W] = tris16[:, a]
+
+    R = n_tiles * TILE
+    o = np.stack([rng.uniform(-1, 1, R), rng.uniform(-1, 1, R), np.full(R, -10.0)], -1)
+    d = np.stack([rng.normal(0, 0.05, R), rng.normal(0, 0.05, R), np.ones(R)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.where(rng.rand(R) < 0.125, 9.0, bvh_cuda.BIG)
+    rays8 = np.concatenate([o, d, np.zeros((R, 1)), tmax[:, None]], -1).astype(np.float32)
+    t_acc = np.where(rng.rand(R) < 0.25, rng.uniform(6, 16, R), bvh_cuda.BIG)
+    t_acc[rng.rand(R) < 0.125] = -bvh_cuda.BIG
+    t_acc = t_acc.astype(np.float32)
+    p_acc = np.full(R, -1, np.int32)
+
+    others = rng.permutation(n_blocks - 2)
+    runs = [list(others[:MAX_L]), [blk_a, blk_b], [blk_b, blk_a], [others[MAX_L]],
+            [sentinel, others[MAX_L + 1], sentinel], []]
+    runs += [list(rng.choice(n_blocks, rng.randint(0, 2))) for _ in range(n_tiles - 6)]
+    runs = runs[:n_tiles]
+    count = np.array([len(r) for r in runs], np.int32)
+    start = (np.cumsum(count) - count).astype(np.int32)
+    pair_block = np.array([b for r in runs for b in r], np.int32)
+
+    # tile 3: start half of its hit rays at exactly their hit t
+    sl = slice(3 * TILE, 4 * TILE)
+    t3 = torch.full((TILE,), bvh_cuda.BIG)
+    p3 = torch.full((TILE,), -1, dtype=torch.int32)
+    bvh_cuda.wide_sweep_plain(*(torch.as_tensor(x) for x in (
+        np.array(runs[3], np.int32), np.zeros(1, np.int32), np.ones(1, np.int32),
+        rays8[sl], tris16)), sentinel, t3, p3)
+    tie = (p3.numpy() >= 0) & (np.arange(TILE) % 2 == 0)
+    t_acc[sl][tie] = t3.numpy()[tie]
+    p_acc[sl][tie] = 424242
+    keep = np.zeros(R, bool)
+    keep[sl] = tie
+
+    args = [torch.as_tensor(x, device=device) for x in (pair_block, start, count, rays8, tris16)]
+    return (*args, sentinel, torch.as_tensor(t_acc, device=device),
+            torch.as_tensor(p_acc, device=device)), torch.as_tensor(keep)
+
+
 def _same(t, p, t_ref, p_ref):
     torch.cuda.synchronize()
     assert torch.equal(p.long().cpu(), p_ref.long().cpu())
@@ -100,6 +172,26 @@ def test_k2_kernel_matches_plain_and_brute(cuda):
     assert sum(checked) > 0
     geom = SceneGeom(v0, e1, e2, *([None] * 8))
     _same(t, p, *t_pass_brute(geom, Ray(o, d, tmin, tmax, torch.zeros_like(tmin))))
+
+
+def test_k2_kernel_matches_plain_on_adversarial_pairs(cuda):
+    """The redesigned K2 (items over the whole card, merged by key) at
+    the render's shape on the adversarial pair list: prim identical and
+    t equal to the sequential fold."""
+    from pbrt_tpu_torch.ops import bvh_cuda
+
+    args, keep = adversarial_sweep_case(cuda)
+    *inputs, t0, p0 = args
+    t_ref, p_ref = bvh_cuda.wide_sweep_plain(*inputs, t0.clone(), p0.clone())
+    t, p = t0.clone(), p0.clone()
+    before = bvh_cuda.launches
+    bvh_cuda.wide_sweep_cuda(*inputs, t, p)
+    assert bvh_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(p, p_ref)
+    assert torch.equal(t.view(torch.int32), t_ref.view(torch.int32))
+    assert bool((p[keep.to(cuda)] == 424242).all()) and int(keep.sum()) > 50
+    assert int((p != p0).sum()) > 10000
 
 
 def test_render_on_card_matches_cpu(cuda, tmp_path):
