@@ -5,16 +5,18 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from pbrt_tpu_torch/csrc/, holds each kernel
-against its plain torch version on the card at the main path's shapes
-(K2 on every wave of three 1024^2 ray sets, traversed whole and cut into
-the render's 65,536-ray traversals), renders the 135k-triangle bench
-scene (wide pipeline, kernel K2) and a small mixed-material scene (flat
-t-pass, kernel K1) through the CLI entry point, checks the images,
-renders the bench scene once more with CUDA events around every K2
-launch, and prints one JSON line per the contract below. Every phase
-raises on failure; the script then exits non-zero and prints no result.
-It needs no network and no JAX.
+It builds the CUDA kernels from pbrt_tpu_torch/csrc/ (and counts the
+instructions of each kernel's inner loop in the built library), holds
+each kernel against its plain torch version on the card at the main
+path's shapes (K1 bit for bit on a random set and on every launch of the
+small render; K2 on every wave of three 1024^2 ray sets, traversed whole
+and cut into the render's 65,536-ray traversals), renders the
+135k-triangle bench scene (wide pipeline, kernel K2) and a small
+mixed-material scene (flat t-pass, kernel K1) through the CLI entry
+point, checks the images, renders each scene once more with CUDA events
+around every launch of its kernel, and prints one JSON line per the
+contract below. Every phase raises on failure; the script then exits
+non-zero and prints no result. It needs no network and no JAX.
 
     python3 chip_smoke.py --profile   # also: bench render under torch.profiler
 
@@ -22,7 +24,7 @@ Output, in order: device line (nvidia-smi name and power limit, torch
 and CUDA versions), build report, kernel comparisons, renders, then
   {"kernels": [{"name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "pairs", "tests", ...}, ...]}
+                "library_ms", "tests", "live_share" (K1), ...}, ...]}
   <nvidia-smi name, power.limit>
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -30,12 +32,16 @@ Bounds: a Moller-Trumbore test is MT_FLOPS float32 operations (the count
 in csrc/bvh_sweep.cu); the bound is the larger of operations over the
 H100 SXM's float32 peak and the bytes that must move (each input read
 once, each output written once; for K2 the leaf blocks this run's pair
-lists name) over its HBM rate.
+lists name) over its HBM rate. K1 tests live rays only (tmin < tmax), so
+its bound counts live rays x triangles; the bound over all rays is
+logged beside it.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -156,21 +162,123 @@ def bound(flops, nbytes):
     return (f, "operations") if f >= b else (b, "bytes")
 
 
-def compare(name, t, p, t_ref, p_ref):
-    """prim identical, t within T_RTOL relative on hits -> max |dt|."""
+SASS_CLASSES = {
+    "fp32": {"FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I"},
+    "mufu": {"MUFU"},
+    "cmp_sel": {"FSETP", "FSEL", "SEL", "ISETP", "PLOP3", "FCHK", "FMNMX", "IMNMX", "P2R", "R2P"},
+    "lds": {"LDS", "LDSM"},
+}
+
+
+def sass_inner_loops(lib_path):
+    """Instruction counts of each kernel's inner loop, from `cuobjdump
+    -sass` of the built library: for every function, the innermost
+    backward-branch loop that holds MUFU.RCP (one per Moller-Trumbore
+    test). -> {function: {"tests", "instructions", "per_test", "by_class",
+    "slow_path", "per_test_fast", "ceiling"}}. "slow_path" counts the
+    lines that call the division's slow path (from the branch over them
+    to the branch back), which run only for a det outside the
+    reciprocal's fast range (zero, denormal, >= 2^126); "per_test_fast"
+    leaves them out. ceiling = MT_FLOPS / (2 x per_test_fast), the share
+    of the FLOP bound that issuing one instruction per scheduler per
+    cycle allows. {} without cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return {}
+    out = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True,
+                         timeout=120).stdout
+    funcs, labels, cur, pending = {}, {}, None, []
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs[cur], labels[cur], pending = [], {}, []
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m and cur:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[cur][lab] = addr
+            pending = []
+            funcs[cur].append((addr, m.group(2)))
+    result = {}
+    for name, ins in funcs.items():
+        ops = []
+        for addr, text in ins:
+            words = text.split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            ops.append((addr, words[0].split(".")[0] if words else "", text))
+        loops = []
+        for addr, op, text in ops:
+            if op != "BRA":
+                continue
+            m = re.search(r"\(?(\.L_x_\d+)\)?|0x([0-9a-f]+)", text.split("BRA", 1)[1])
+            if not m:
+                continue
+            target = labels[name].get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+            if target is not None and target < addr:
+                body = [o for a, o, _ in ops if target <= a <= addr]
+                rcp = sum(1 for a, o, t in ops if target <= a <= addr and "MUFU.RCP" in t)
+                if rcp:
+                    loops.append((target, addr, body, rcp))
+        inner = [lp for lp in loops
+                 if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        if not inner:
+            continue
+        start, end, body, rcp = max(inner, key=lambda lp: lp[3])
+        texts = [t for a, _, t in ops if start <= a <= end]
+        slow = 0
+        for c, t in enumerate(texts):
+            if "CALL" not in t:
+                continue
+            b = max((i for i in range(c) if "BRA" in texts[i] and texts[i].startswith("@")),
+                    default=c - 1)
+            e = next((i for i in range(c + 1, len(texts))
+                      if "BRA" in texts[i] and not texts[i].startswith("@")), c)
+            slow += e - b
+        by_class = {c: sum(1 for o in body if o in names) for c, names in SASS_CLASSES.items()}
+        by_class["other"] = len(body) - sum(by_class.values())
+        fast = (len(body) - slow) / rcp
+        result[name] = {"tests": rcp, "instructions": len(body), "per_test": len(body) / rcp,
+                        "by_class": by_class, "slow_path": slow, "per_test_fast": fast,
+                        "ceiling": MT_FLOPS / (2 * fast)}
+    return result
+
+
+def sass_of(sass, *kernels):
+    """The inner-loop counts of the first function whose (mangled) name
+    holds one of `kernels`, or None."""
+    for k in kernels:
+        for fn, c in sass.items():
+            if k in fn:
+                return c
+    return None
+
+
+def compare(name, t, p, t_ref, p_ref, bits=False):
+    """prim identical, t within T_RTOL relative on hits (bits=True: t
+    bit-equal on every ray) -> max |dt|."""
     import torch
 
     torch.cuda.synchronize()
     if not torch.equal(p.long(), p_ref.long()):
         bad = int((p.long() != p_ref.long()).sum())
         raise RuntimeError(f"{name}: prim differs on {bad} of {p.numel()} rays")
+    differ = int((t.view(torch.int32) != t_ref.view(torch.int32)).sum())
+    if bits and differ:
+        raise RuntimeError(f"{name}: t bits differ on {differ} of {t.numel()} rays")
     hit = p_ref >= 0
     err = (t[hit] - t_ref[hit]).abs()
     max_err = float(err.max()) if err.numel() else 0.0
     if err.numel() and bool((err > T_RTOL * t_ref[hit].abs()).any()):
         raise RuntimeError(f"{name}: t differs beyond {T_RTOL} relative (max {max_err})")
     log(f"  {name}: {int(hit.sum())}/{p.numel()} hits, prim identical, "
-        f"max |dt| = {max_err:.3g}")
+        f"{'t bit-equal' if bits else f'max |dt| = {max_err:.3g}'}")
     return max_err
 
 
@@ -205,15 +313,19 @@ def phase_k1(device):
     rays8 = k1.make_rays8(*random_rays(65536, 2, device))
     t, p = k1.tri_t_pass_cuda(rays8, soa.tris9, soa.n)
     t_ref, p_ref = k1.tri_t_pass_plain(rays8, soa.tris9, soa.n)
-    err = compare("K1 tri_t_pass_kernel vs plain (65536 rays x 4096 tris)", t, p, t_ref, p_ref)
+    err = compare("K1 vs plain (65536 rays x 4096 tris)", t, p, t_ref, p_ref, bits=True)
     ms = cuda_ms(lambda: k1.tri_t_pass_cuda(rays8, soa.tris9, soa.n), iters=20)
     plain_ms = cuda_ms(lambda: k1.tri_t_pass_plain(rays8, soa.tris9, soa.n), iters=3)
-    tests = 65536 * 4096
-    b_ms, b_by = bound(tests * MT_FLOPS, rays8.numel() * 4 + soa.tris9.numel() * 4 + 65536 * 8)
-    log(f"  K1 time: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}), {b_ms / ms:.1%} of bound")
+    live = int((rays8[:, 6] < rays8[:, 7]).sum())
+    nbytes = rays8.numel() * 4 + soa.tris9.numel() * 4 + 65536 * 8
+    b_ms, b_by = bound(live * soa.n * MT_FLOPS, nbytes)
+    all_ms, _ = bound(65536 * soa.n * MT_FLOPS, nbytes)
+    log(f"  K1 time: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms; live rays "
+        f"{live / 65536:.4f}; bound {b_ms:.4f} ms over live rays ({b_by}), {b_ms / ms:.1%} "
+        f"of bound; over all rays {all_ms:.4f} ms, {all_ms / ms:.1%}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "pairs": (65536 // 1024) * (4096 // k1.TB), "tests": tests}
+            "bound_by": b_by, "bound_all_rays_ms": all_ms, "live_share": live / 65536,
+            "tests": live * soa.n}
 
 
 class SweepRecorder:
@@ -281,23 +393,28 @@ class SweepRecorder:
 
 
 class LaunchTimer:
-    """Stands in for bvh_cuda.wide_sweep in a render: CUDA events around
-    each K2 launch, read after the render (no sync during it). An event
-    pair spans from the wrapper's call to the kernel's end, so it also
-    holds the wrapper's host time whenever the device waits on the host."""
+    """Stands in for a kernel's wrapper in a render: CUDA events around
+    each launch, read after the render (no sync during it). An event pair
+    spans from the wrapper's call to the kernel's end, so it also holds
+    the wrapper's host time whenever the device waits on the host.
+    `work(*args)`, if given, describes the launch's work as (a device
+    tensor, enqueued after the second event and read after the render;
+    a tuple of host ints)."""
 
-    def __init__(self, bvh_cuda):
-        self.m = bvh_cuda
-        self.events = []
+    def __init__(self, fn, work=None):
+        self.fn, self.work = fn, work
+        self.events, self.works = [], []
 
     def __call__(self, *args):
         import torch
 
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        out = self.m.wide_sweep_cuda(*args)
+        out = self.fn(*args)
         b.record()
         self.events.append((a, b))
+        if self.work is not None:
+            self.works.append(self.work(*args))
         return out
 
     def total_ms(self):
@@ -305,6 +422,87 @@ class LaunchTimer:
 
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in self.events)
+
+    def work_rows(self):
+        """Each launch's work as a list of ints (after the render)."""
+        import torch
+
+        torch.cuda.synchronize()
+        return [[int(x) for x in dev.tolist()] + list(host) for dev, host in self.works]
+
+
+def k2_work(pair_block, start, count, rays8, tris16, sentinel, t_acc, p_acc):
+    """One K2 launch's work without a sync: (real pairs, distinct leaf
+    blocks, tiles with pairs, listed pairs) on the device; (tiles,)."""
+    import torch
+
+    n = count.sum()
+    real = (torch.arange(pair_block.numel(), device=count.device) < n) & (pair_block != sentinel)
+    seen = torch.zeros(sentinel + 1, dtype=torch.int64, device=count.device)
+    seen.scatter_(0, torch.where(real, pair_block, sentinel).long(), 1)
+    return (torch.stack([real.sum(), seen[:sentinel].sum(), (count > 0).sum(), n.long()]),
+            (count.numel(),))
+
+
+def k2_launch_bound(pairs, blocks, tiles, listed, n_tiles):
+    """(flops ms, bytes ms) of one K2 launch, counted as SweepRecorder does."""
+    nbytes = blocks * 9 * 128 * 4 + tiles * 1024 * (32 + 2 * 8) + listed * 4 + n_tiles * 8
+    return pairs * 1024 * 128 * MT_FLOPS / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+class K1Recorder:
+    """Stands in for intersect_cuda.tri_t_pass_cuda during a render: every
+    launch also goes through the plain twin on the same inputs, which must
+    agree bit for bit; both are timed by CUDA events (the device kept busy
+    while the wrapper enqueues), and each launch's live-ray share and
+    bound are recorded."""
+
+    def __init__(self, kernel, plain):
+        self.kernel, self.plain = kernel, plain
+        self.ms = self.plain_ms = self.flops_ms = self.bytes_ms = self.all_flops_ms = 0.0
+        self.launches = self.rays = self.live = self.hits = self.tests = 0
+        self.live_shares = []
+
+    def __call__(self, rays8, tris9, n_tris):
+        import torch
+
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        t_ref, p_ref = self.plain(rays8, tris9, n_tris)
+        ev[1].record()
+        torch.cuda._sleep(1_000_000)  # keeps the device busy while the wrapper enqueues
+        ev[2].record()
+        t, p = self.kernel(rays8, tris9, n_tris)
+        ev[3].record()
+        self.launches += 1
+        bad_p = int((p != p_ref).sum())
+        bad_t = int((t.view(torch.int32) != t_ref.view(torch.int32)).sum())
+        if bad_p or bad_t:
+            raise RuntimeError(f"K1 render launch {self.launches}: prim differs on {bad_p} "
+                               f"rays, t bits on {bad_t}")
+        self.plain_ms += ev[0].elapsed_time(ev[1])
+        self.ms += ev[2].elapsed_time(ev[3])
+        R = rays8.shape[0]
+        live = int((rays8[:, 6] < rays8[:, 7]).sum())
+        self.rays += R
+        self.live += live
+        self.tests += live * n_tris
+        self.hits += int((p >= 0).sum())
+        self.live_shares.append(live / max(R, 1))
+        self.flops_ms += live * n_tris * MT_FLOPS / PEAK_F32 * 1e3
+        self.all_flops_ms += R * n_tris * MT_FLOPS / PEAK_F32 * 1e3
+        self.bytes_ms += (rays8.numel() * 4 + tris9.numel() * 4 + R * 8) / PEAK_BYTES * 1e3
+        return t, p
+
+    def summary(self):
+        return {"launches": self.launches, "ms": self.ms, "plain_ms": self.plain_ms,
+                "bound_ms": max(self.flops_ms, self.bytes_ms),
+                "bound_by": "operations" if self.flops_ms >= self.bytes_ms else "bytes",
+                "bound_all_rays_ms": max(self.all_flops_ms, self.bytes_ms),
+                "live_share": self.live / max(self.rays, 1),
+                "live_share_per_launch": [round(x, 4) for x in self.live_shares],
+                "tests": self.tests,
+                "rays": self.rays, "hits": self.hits}
 
 
 def traverse(bvh_cuda, wb, o, d, tmin, tmax, per, **kw):
@@ -492,8 +690,17 @@ def main():
         f"{build.BuildInfo.path} from pbrt_tpu_torch/csrc/*.cu for sm_90a in "
         f"{build.BuildInfo.seconds:.1f} s")
     for line in build.BuildInfo.ptxas.splitlines():
-        if "ptxas" in line and ("Used" in line or "Compiling" in line or "spill" in line):
+        if ("ptxas" in line and ("Used" in line or "Compiling" in line)) or "spill" in line:
             log("  " + line.strip())
+    sass = sass_inner_loops(build.BuildInfo.path)
+    if not sass:
+        log("  inner-loop instruction counts: not measured (no cuobjdump)")
+    for fn, c in sass.items():
+        log(f"  SASS inner loop of {fn}: {c['instructions']} instructions for {c['tests']} "
+            f"tests = {c['per_test']:.2f} per test {c['by_class']}; {c['slow_path']} of them "
+            f"call the division's slow path, so {c['per_test_fast']:.2f} per test on the fast "
+            f"path; ceiling under the rounding contract {MT_FLOPS} / (2 x "
+            f"{c['per_test_fast']:.2f}) = {c['ceiling']:.1%} of the FLOP bound")
 
     log("[3] K1 (flat t-pass) vs plain torch")
     k1 = phase_k1(device)
@@ -519,15 +726,54 @@ def main():
         log(f"[6] small render {SMALL_RES}x{SMALL_RES}, 4 spp (matte, plastic, mirror, "
             "glass Vn, triangle area light)")
         img, sec_small = render(small_scene_text(SMALL_RES, 4), "small", tmp)
-        k1["launches"] = intersect_cuda.launches
+        k1_launches = intersect_cuda.launches
         log(f"  {sec_small:.2f} s end to end, image mean {img.mean():.5f}, "
-            f"K1 launches {k1['launches']}")
-        if k1["launches"] <= 0:
+            f"K1 launches {k1_launches}")
+        if k1_launches <= 0:
             raise RuntimeError("small render did not launch K1")
+
+        # outside the timed render: every K1 launch of a small render held
+        # against the plain twin, then K1's time inside a render by events
+        log("[6b] small render again, every K1 launch vs plain torch (bit for bit)")
+        rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
+        real_k1 = intersect_cuda.tri_t_pass_cuda
+        try:
+            intersect_cuda.tri_t_pass_cuda = rec
+            render(small_scene_text(SMALL_RES, 4), "small_checked", tmp)
+        finally:
+            intersect_cuda.tri_t_pass_cuda = real_k1
+        r = rec.summary()
+        if r["launches"] != k1_launches:
+            raise RuntimeError(f"K1 launches differ between renders: {r['launches']} vs "
+                               f"{k1_launches}")
+        log(f"  {r['launches']} launches, {r['rays']} rays, live share {r['live_share']:.4f} "
+            f"(per launch {r['live_share_per_launch']}), {r['hits']} hits; every launch: prim "
+            f"identical, t bit-equal; kernel {r['ms']:.3f} ms, plain torch {r['plain_ms']:.3f} "
+            f"ms; bound over live rays {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound; over all rays {r['bound_all_rays_ms']:.3f}"
+            f" ms, {r['bound_all_rays_ms'] / r['ms']:.1%}")
+        log("[6c] small render again, CUDA events around every K1 launch")
+        timer = LaunchTimer(real_k1)
+        try:
+            intersect_cuda.tri_t_pass_cuda = timer
+            _, sec_ev = render(small_scene_text(SMALL_RES, 4), "small_events", tmp)
+        finally:
+            intersect_cuda.tri_t_pass_cuda = real_k1
+        k1_render_ms = timer.total_ms()
+        log(f"  {sec_ev:.2f} s end to end (timed render {sec_small:.2f} s); K1 "
+            f"{k1_render_ms:.3f} ms over {len(timer.events)} launches (event spans)")
+        k1_set3 = k1
+        k1 = {"launches": k1_launches, "max_abs_err": 0.0,
+              **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "bound_all_rays_ms", "live_share", "tests")},
+              "small_render": {"seconds": sec_small, "seconds_with_events": sec_ev,
+                               "k1_event_ms": k1_render_ms,
+                               "live_share_per_launch": r["live_share_per_launch"]},
+              "set3": k1_set3, "sass": sass_of(sass, "k1_sweep_kernel", "tri_t_pass_kernel")}
 
         # outside the timed render: K2's share of a bench render, by events
         log("[5b] bench render again, CUDA events around every K2 launch")
-        timer = LaunchTimer(bvh_cuda)
+        timer = LaunchTimer(bvh_cuda.wide_sweep_cuda, work=k2_work)
         real_sweep = bvh_cuda.wide_sweep
         try:
             bvh_cuda.wide_sweep = timer
@@ -535,11 +781,20 @@ def main():
         finally:
             bvh_cuda.wide_sweep = real_sweep
         k2_render_ms = timer.total_ms()
+        n_ev = max(len(timer.events), 1)
+        per_launch = [k2_launch_bound(*w) for w in timer.work_rows()]
+        f_ms = sum(f for f, _ in per_launch)
+        b_ms = sum(max(f, b) for f, b in per_launch)
+        pairs = sum(w[0] for w in timer.work_rows())
         k2["bench_render"] = {"seconds": sec, "seconds_with_events": sec_ev,
-                              "k2_event_ms": k2_render_ms, "k2_launches": len(timer.events)}
+                              "k2_event_ms": k2_render_ms, "k2_launches": len(timer.events),
+                              "pairs": pairs, "bound_ms": b_ms, "flops_bound_ms": f_ms,
+                              "bound_ms_per_launch": b_ms / n_ev}
         log(f"  {sec_ev:.2f} s end to end (timed render {sec:.2f} s); K2 {k2_render_ms:.1f} ms "
-            f"over {len(timer.events)} launches ({k2_render_ms / max(len(timer.events), 1):.4f} "
-            f"ms per launch, event span)")
+            f"over {len(timer.events)} launches ({k2_render_ms / n_ev:.4f} ms per launch, "
+            f"event span); {pairs} (tile, block) pairs, bound {b_ms:.3f} ms "
+            f"({b_ms / n_ev:.5f} ms per launch; operations alone {f_ms:.3f} ms), "
+            f"{b_ms / k2_render_ms:.1%} of the event spans")
         if "--profile" in sys.argv[1:]:
             log("[5c] bench render under torch.profiler")
             k2["bench_render"]["profile"] = profile_render(bench_scene_text(BENCH_RES), tmp)
@@ -556,17 +811,19 @@ def main():
         if mean_rel > 5e-3 or (rel <= 1e-3).mean() < 0.99:
             raise RuntimeError("card render disagrees with the CPU render")
 
-    # K1: 65,536 rays x 4,096 triangles; K2: the three 1024^2 ray sets in
-    # the render's 65,536-ray traversals (sums over every wave; by_set has
-    # each set at both shapes). No single PyTorch call computes either.
+    # K1: every launch of the small render (set3: 65,536 rays x 4,096
+    # triangles); K2: the three 1024^2 ray sets in the render's 65,536-ray
+    # traversals (sums over every wave; by_set has each set at both
+    # shapes). No single PyTorch call computes either.
     log(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [
-        {"name": "tri_t_pass_kernel", "route": "cuda",
+        {"name": "k1_sweep_kernel", "route": "cuda",
          "source": "pbrt_tpu_torch/csrc/intersect.cu",
          "replaces": "pbrt_tpu/ops/intersect_pallas.py:35", "library_ms": None, **k1},
         {"name": "k2_sweep_kernel", "route": "cuda",
          "source": "pbrt_tpu_torch/csrc/bvh_sweep.cu",
-         "replaces": "pbrt_tpu/ops/bvh_pallas.py:54", "library_ms": None, **k2},
+         "replaces": "pbrt_tpu/ops/bvh_pallas.py:54", "library_ms": None,
+         "sass": sass_of(sass, "k2_sweep_kernel"), **k2},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

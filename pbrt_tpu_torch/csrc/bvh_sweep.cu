@@ -14,8 +14,11 @@
 // 1024 rays, so operations: a pair of 1024 x 128 tests has a floor of
 // 90 ns at 67 TFLOP/s. The kernels are built with -fmad=false and IEEE
 // division, so the flops are separate instructions that round like the
-// plain torch twin; about half the FLOP bound is the ceiling under that
-// contract.
+// plain torch twin. At one warp instruction per scheduler per cycle that
+// caps the kernel at 46 / (2 x instructions per test) of the FLOP bound:
+// chip_smoke.py [2] counts 75.9 instructions per test on the division's
+// fast path in this inner loop (79.4 with the slow-path call), so the
+// ceiling under the contract is 30.3%.
 //
 // Design on Hopper. The TPU walks one sequential grid over tile-sorted
 // pairs and carries each tile's accumulator from step to step. One block
@@ -44,9 +47,11 @@
 //    as one float4 (9 shared loads per 4 x 46 flops), so shared loads
 //    stay far under the FP32 pipes. Warps whose rays cannot improve
 //    (dead rays, t_acc = -1e30) skip the tests.
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
+
+using namespace pbrt_cuda;
 
 constexpr int K2_TILE = 1024;     // rays per tile (wide_bvh.TILE)
 constexpr int K2_LEAF = 128;      // triangles per leaf block (wide_bvh.LEAF_W)
@@ -55,30 +60,11 @@ constexpr int K2_SLICES = K2_TILE / K2_THREADS;
 constexpr int K2_CHUNK = 2;       // pairs per item (bvh_cuda.SWEEP_CHUNK)
 constexpr int K2_SHARED_TILES = 2048;  // item offsets cached in shared memory up to this
 constexpr int K2_ITEMS_THREADS = 1024;
-constexpr float K2_BIG = 1e30f;
-constexpr long long K2_EMPTY = 0x7F7F7F7F7F7F7F7FLL;  // cudaMemset 0x7F; above every key
 
+// K2's merge key: t, then the pair's position in the run, then the slot
+// (bvh_cuda.pack_keys).
 __device__ __forceinline__ long long pack_key(float t, int pos, int slot) {
-  const int bits = __float_as_int(t);
-  const int neg_zero = bits == static_cast<int>(0x80000000u);
-  const int i = neg_zero ? 0 : bits;
-  const int hi = i ^ ((i >> 31) & 0x7FFFFFFF);
-  const unsigned lo = (static_cast<unsigned>(pos) << 8) |
-                      (static_cast<unsigned>(slot) << 1) | static_cast<unsigned>(neg_zero);
-  return static_cast<long long>((static_cast<unsigned long long>(static_cast<unsigned>(hi)) << 32) |
-                                lo);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  return key_of_t(t) | (static_cast<long long>(pos) << 8) | (static_cast<long long>(slot) << 1);
 }
 
 // One Moller-Trumbore test, folded into the block minimum (bt, bi) with
@@ -218,7 +204,7 @@ k2_sweep_kernel(const int* __restrict__ pair_block, const int* __restrict__ tile
     const float acc0 = t_acc[r];
     // a candidate is a hit in (tmin, tmax) below 1e30, or 1e30 itself;
     // it can win only if its t < acc0 (false for NaN and dead rays)
-    const bool live = acc0 > ray[6] || acc0 > K2_BIG;
+    const bool live = acc0 > ray[6] || acc0 > BIG;
     if (!__syncthreads_or(live)) {  // uniform: nothing in this slice can change
       cp_async_wait<0>();           // the staged copy lands before buf 0 is reused
       j = j1;
@@ -236,7 +222,7 @@ k2_sweep_kernel(const int* __restrict__ pair_block, const int* __restrict__ tile
         cp_async_wait<0>();
       }
       __syncthreads();
-      float bt = K2_BIG;
+      float bt = BIG;
       int bi = 0;
       if (__any_sync(0xffffffffu, live)) {
         const float4* s4 = reinterpret_cast<const float4*>(&s_tri[buf][0][0]);
@@ -285,31 +271,14 @@ __global__ void k2_merge_kernel(const long long* __restrict__ keys,
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const long long key = keys[r];
-  if (key == K2_EMPTY) return;
-  const int hi_bits = static_cast<int>(static_cast<unsigned long long>(key) >> 32);
+  if (key == KEY_EMPTY) return;
+  const float t = t_of_key(key);
   const unsigned lo = static_cast<unsigned>(key);
-  const int i = hi_bits ^ ((hi_bits >> 31) & 0x7FFFFFFF);
-  const float t = (lo & 1u) ? -0.0f : __int_as_float(i);
   if (t < t_acc[r]) {
     const int pos = static_cast<int>(lo >> 8), slot = static_cast<int>((lo >> 1) & 127u);
     t_acc[r] = t;
     p_acc[r] = pair_block[tile_start[r / K2_TILE] + pos] * K2_LEAF + slot;
   }
-}
-
-int sweep_grid() {
-  static int grid[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (grid[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k2_sweep_kernel, K2_THREADS,
-                                                      0) != cudaSuccess)
-      return 0;
-    grid[dev] = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  return grid[dev];
 }
 
 }  // namespace
@@ -337,7 +306,7 @@ extern "C" int pbrt_wide_sweep(const int* pair_block, const int* tile_start,
   long long* keys = static_cast<long long*>(scratch);
   int* item_start = reinterpret_cast<int*>(keys + n_rays);
   int* counter = item_start + n_tiles + 1;
-  const int grid = sweep_grid();
+  const int grid = resident_grid<k2_sweep_kernel>(K2_THREADS);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = cudaMemsetAsync(keys, 0x7F, static_cast<size_t>(n_rays) * 8, s);
   if (err != cudaSuccess) return static_cast<int>(err);

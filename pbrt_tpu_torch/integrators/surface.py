@@ -160,7 +160,8 @@ def _li_path_impl(scene, ray: Ray, u_fn, max_depth: int, rr_start: int):
 
     for depth in range(max_depth + 1):
         # dead lanes get an empty [0, -1] interval: the accelerators skip
-        # them (the packet pipeline sorts them into all-dead tiles)
+        # them (the flat t-pass lists only live rays on the device; the
+        # packet pipeline sorts them into all-dead tiles)
         hit = scene.intersect(Ray(st.ray_o, st.ray_d, torch.zeros((N,), device=dev),
                                   torch.where(st.alive, torch.full((), BIG, device=dev),
                                               torch.full((), -1.0, device=dev)), tm),

@@ -2,7 +2,7 @@
 
 All kernel sources are compiled by one nvcc call into one shared
 library with a plain C interface, at first use, into
-`pbrt_tpu_torch/_build/<hash of sources and flags>/` (listed in
+`pbrt_tpu_torch/_build/<hash of sources, headers and flags>/` (listed in
 .gitignore). Nothing is built at import time: the CPU tests import every
 module and this machine class may have no nvcc.
 """
@@ -50,6 +50,10 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def load_kernels() -> ctypes.CDLL:
     """-> the kernel library, building it first if needed. Raises on any
     build or load failure."""
@@ -59,7 +63,7 @@ def load_kernels() -> ctypes.CDLL:
             return _LIB
         srcs = _sources()
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
+        for s in srcs + _headers():
             with open(s, "rb") as f:
                 h.update(os.path.basename(s).encode() + f.read())
         out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
@@ -83,7 +87,9 @@ def load_kernels() -> ctypes.CDLL:
         lib = ctypes.CDLL(so)
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.pbrt_tri_t_pass.restype = i
-        lib.pbrt_tri_t_pass.argtypes = [vp, i, vp, i, i, vp, vp, vp]
+        lib.pbrt_tri_t_pass.argtypes = [vp, i, vp, i, i, vp, vp, vp, vp]
+        lib.pbrt_tri_t_pass_scratch_bytes.restype = ctypes.c_longlong
+        lib.pbrt_tri_t_pass_scratch_bytes.argtypes = [i]
         lib.pbrt_wide_sweep.restype = i
         lib.pbrt_wide_sweep.argtypes = [vp, vp, vp, i, vp, vp, i, i, vp, vp, vp, vp]
         lib.pbrt_wide_sweep_scratch_bytes.restype = ctypes.c_longlong

@@ -28,6 +28,7 @@ import torch
 
 from pbrt_tpu_torch.accel.wide_bvh import LEAF_W, MAX_L, TILE, WideBVH
 from pbrt_tpu_torch.ops.build import check_cuda, load_kernels, raise_on_launch_error
+from pbrt_tpu_torch.ops.intersect_cuda import KEY_EMPTY, key_of_t, t_of_key
 
 BIG = 1e30
 CHUNK = 1 << 20      # rays per traversal (bounds the Phase A tables)
@@ -36,7 +37,6 @@ CULL_BYTES = 512 << 20  # per [rays, blocks] temporary of the per-ray cull
 PLAIN_TILES = 64        # tiles per step of the plain sweep (bounds its temporaries)
 
 SWEEP_CHUNK = 2         # pairs per K2 work item (csrc/bvh_sweep.cu K2_CHUNK)
-KEY_EMPTY = 0x7F7F7F7F7F7F7F7F  # a ray's key before any candidate; above every candidate's
 MAX_RUN = 1 << 24       # pair positions a key can hold
 
 launches = 0  # K2 kernel launches in this process
@@ -93,26 +93,16 @@ def wide_sweep_plain(pair_block, tile_start, tile_count, rays8, tris16,
 
 def pack_keys(t, pos, slot):
     """K2's merge keys (int64) of candidates (t f32, position in the
-    tile's run, slot): order-preserving bits of t with -0.0 taken as
-    +0.0, then pos, then slot, then one bit that keeps a -0.0. The least
-    key of a ray is its first minimum in list order, the candidate the
-    sequential strict '<' fold keeps."""
-    bits = t.contiguous().view(torch.int32)
-    neg_zero = bits == -(1 << 31)
-    i = torch.where(neg_zero, 0, bits)
-    hi = (i ^ ((i >> 31) & 0x7FFFFFFF)).to(torch.int64)
-    lo = (pos.to(torch.int64) << 8) | (slot.to(torch.int64) << 1) | neg_zero.to(torch.int64)
-    return (hi << 32) | lo
+    tile's run, slot): key_of_t, then pos, then slot. The least key of a
+    ray is its first minimum in list order, the candidate the sequential
+    strict '<' fold keeps."""
+    return key_of_t(t) | (pos.to(torch.int64) << 8) | (slot.to(torch.int64) << 1)
 
 
 def unpack_keys(keys):
     """keys -> (t f32, pos i64, slot i64); the inverse of pack_keys."""
-    hi = (keys >> 32).to(torch.int32)
-    i = hi ^ ((hi >> 31) & 0x7FFFFFFF)
     lo = keys & 0xFFFFFFFF
-    t = torch.where((lo & 1) == 1, torch.full((), -0.0, device=keys.device),
-                    i.view(torch.float32))
-    return t, lo >> 8, (lo >> 1) & (LEAF_W - 1)
+    return t_of_key(keys), lo >> 8, (lo >> 1) & (LEAF_W - 1)
 
 
 def merge_keys(keys, pair_block, tile_start, t_acc, p_acc):

@@ -20,6 +20,8 @@ from pbrt_tpu_torch.lights import lighting as tl
 from pbrt_tpu_torch.materials import bsdf as tb
 from pbrt_tpu_torch.materials.registry import KIND_ID
 
+torch.set_num_threads(1)  # small tensors: intra-op threads only contend with the other test workers
+
 H = 4096
 S = 30
 

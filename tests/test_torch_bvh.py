@@ -26,6 +26,8 @@ from pbrt_tpu_torch.accel.wide_bvh import MAX_L, TILE, build_wide_bvh
 from pbrt_tpu_torch.ops import bvh_cuda
 from test_torch_intersect import jax_geom, random_geom_arrays, random_rays
 
+torch.set_num_threads(1)  # small tensors: intra-op threads only contend with the other test workers
+
 
 @pytest.fixture(scope="module")
 def wide():

@@ -21,6 +21,8 @@ from pbrt_tpu_torch.core.transform import Transform as TTransform
 from pbrt_tpu_torch.film import film as tf
 from pbrt_tpu_torch.scene.paramset import ParamSet as TParamSet
 
+torch.set_num_threads(1)  # small tensors: intra-op threads only contend with the other test workers
+
 S = 30
 N = 4096
 

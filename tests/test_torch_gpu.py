@@ -8,13 +8,16 @@ Run them on the card with:
 
 Tolerances: the kernels are built with -fmad=false, so each multiply
 and add rounds like the plain torch twin; prim ids must be identical and
-t within 1e-5 relative. The card render is held against the CPU render
+t bit-equal (K1, K2 on its adversarial pairs; K2 inside wide_t_pass:
+within 1e-5 relative). The card render is held against the CPU render
 (plain twins) with the whole-slice limits of tests/test_torch_slice.py;
 the film deposit on CUDA is an atomic add whose order varies.
 """
 import numpy as np
 import pytest
 import torch
+
+torch.set_num_threads(1)  # small tensors: intra-op threads only contend with the other test workers
 
 pytestmark = pytest.mark.gpu
 
@@ -43,6 +46,77 @@ def _rays(n, seed, device):
     tmax[: n // 8] = -1.0
     tmax[n // 8: n // 4] = 2.0
     return [torch.as_tensor(x, device=device) for x in (o, d, np.zeros(n, np.float32), tmax)]
+
+
+def adversarial_k1_case(n_rays, n_tris, seed, dead="half"):
+    """K1 inputs built to catch a decomposition that breaks the tie rule
+    or the dead-ray skip. NumPy: (rays8 [n_rays, 8], tris9 [9, Tpad],
+    n_tris, info).
+
+      random triangles, with triangle b*256 - 3 copied to b*256 + 5 at
+        every stage boundary b and triangle 0 copied to the last slot, so
+        hits tie at equal t in different stages; a fifth of the rays aim
+        at those copies;
+      four triangles in planes far from the rest, in two pairs whose hits
+        are t = -0.0 (det < 0) and t = +0.0 (det > 0): at x = 20 the -0.0
+        triangle comes first, at x = -24 last; 64 rays start inside them
+        with tmin = -1;
+      dead rays (tmax -1, tmin = tmax, NaN tmin, tmin > tmax): about half
+        the rays (dead="half") or all of them ("all"); among the live,
+        zero directions and a short tmax.
+
+    info: dup_src, dup_dst (the copies' indices), neg_zero / pos_zero
+    (the rays whose least hit is -0.0 / +0.0) and dead (masks)."""
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(-5, 5, (n_tris, 3))
+    e1 = rng.normal(0, 0.5, (n_tris, 3))
+    e2 = rng.normal(0, 0.5, (n_tris, 3))
+    tri = np.concatenate([c - (e1 + e2) / 3, e1, e2], -1).astype(np.float32)   # [n, 9]
+    # the -0.0 / +0.0 pairs (dyadic values: the arithmetic is exact)
+    flat_neg = [20, 20, 0, 4, 0, 0, 0, 4, 0]     # d = +z: det = -16, t = -0.0
+    flat_pos = [20, 20, 0, 0, 4, 0, 4, 0, 0]     # det = +16, t = +0.0
+    flat = {1: flat_neg, n_tris - 2: flat_pos,
+            2: [-24, 20, 0, 0, 4, 0, 4, 0, 0], n_tris - 3: [-24, 20, 0, 4, 0, 0, 0, 4, 0]}
+    src = [b * 256 - 3 for b in range(1, (n_tris + 255) // 256) if b * 256 + 5 < n_tris - 3]
+    src, dst = src + [0], [s + 8 for s in src] + [n_tris - 1]
+    tri[dst] = tri[src]
+    for i, v in flat.items():
+        tri[i] = v
+    tris9 = np.zeros((9, max(256, -(-n_tris // 256) * 256)), np.float32)
+    tris9[:, :n_tris] = tri.T
+
+    o = rng.uniform(-6, 6, (n_rays, 3))
+    d = rng.normal(size=(n_rays, 3))
+    aim = rng.rand(n_rays) < 0.2
+    target = rng.choice(src, n_rays)
+    cen = tri[target, 0:3] + (tri[target, 3:6] + tri[target, 6:9]) / 3
+    d[aim] = cen[aim] - o[aim]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[rng.rand(n_rays) < 1 / 16] = 0.0                 # zero directions
+    tmin = np.zeros(n_rays)
+    tmax = np.where(rng.rand(n_rays) < 1 / 8, 3.0, np.inf)   # short tmax
+    # rays inside the flat pairs, along +z, tmin < 0
+    k = min(64, n_rays // 4)
+    fl = rng.choice(n_rays, k, replace=False)
+    x0 = np.where(np.arange(k) % 2 == 0, 20.0, -24.0)
+    du = rng.choice([0.25, 0.5, 1.0, 1.5], (k, 2))
+    o[fl] = np.stack([x0 + du[:, 0], 20.0 + du[:, 1], np.zeros(k)], -1)
+    d[fl] = [0.0, 0.0, 1.0]
+    tmin[fl], tmax[fl] = -1.0, np.inf
+    is_flat = np.zeros(n_rays, bool)
+    is_flat[fl] = True
+    dead_mask = (rng.rand(n_rays) < 0.5) & ~is_flat if dead == "half" else np.ones(n_rays, bool)
+    kind = rng.randint(0, 4, n_rays)
+    tmax[dead_mask & (kind == 0)] = -1.0
+    tmin[dead_mask & (kind == 1)] = tmax[dead_mask & (kind == 1)] = 2.0
+    tmin[dead_mask & (kind == 2)] = np.nan
+    tmin[dead_mask & (kind == 3)], tmax[dead_mask & (kind == 3)] = 5.0, 3.0
+    rays8 = np.concatenate([o, d, tmin[:, None], np.minimum(tmax, 1e30)[:, None]],
+                           -1).astype(np.float32)
+    live_flat = is_flat & ~dead_mask
+    info = {"dup_src": np.array(src), "dup_dst": np.array(dst), "dead": dead_mask,
+            "neg_zero": live_flat & (o[:, 0] > 0), "pos_zero": live_flat & (o[:, 0] < 0)}
+    return rays8, tris9, n_tris, info
 
 
 def adversarial_sweep_case(device, n_tiles=64, seed=11):
@@ -125,6 +199,12 @@ def _same(t, p, t_ref, p_ref):
     torch.testing.assert_close(t.cpu()[hit], t_ref.cpu()[hit], rtol=1e-5, atol=0)
 
 
+def _bit_equal(t, p, t_ref, p_ref):
+    torch.cuda.synchronize()
+    assert torch.equal(p.long().cpu(), p_ref.long().cpu())
+    assert torch.equal(t.view(torch.int32).cpu(), t_ref.view(torch.int32).cpu())
+
+
 def test_k1_kernel_matches_plain(cuda):
     from pbrt_tpu_torch.ops import intersect_cuda as k1
 
@@ -133,9 +213,40 @@ def test_k1_kernel_matches_plain(cuda):
     before = k1.launches
     t, p = k1.tri_t_pass_cuda(rays8, soa.tris9, soa.n)
     assert k1.launches == before + 1
-    _same(t, p, *k1.tri_t_pass_plain(rays8, soa.tris9, soa.n))
+    t_ref, p_ref = k1.tri_t_pass_plain(rays8, soa.tris9, soa.n)
+    assert (p_ref >= 0).float().mean() > 0.05
+    _bit_equal(t, p, t_ref, p_ref)
     with pytest.raises(ValueError):
         k1.tri_t_pass_cuda(rays8.double(), soa.tris9, soa.n)
+    with pytest.raises(ValueError):  # misaligned rows
+        k1.tri_t_pass_cuda(rays8.view(-1)[2:2 + 8 * 100].view(100, 8), soa.tris9, soa.n)
+
+
+def test_k1_kernel_matches_plain_on_adversarial_case(cuda):
+    """The redesigned K1 (live rays only, items over the whole card,
+    merged by key) at the small render's shape, 65,536 rays x 7,204
+    triangles: ties across stages, -0.0 and +0.0 hits, half the rays
+    dead. prim identical and t bit-equal to the plain twin; one launch
+    counted per call. An all-dead set returns misses."""
+    from pbrt_tpu_torch.ops import intersect_cuda as k1
+
+    for dead in ("half", "all"):
+        rays8, tris9, n, info = adversarial_k1_case(1 << 16, 7204, seed=31, dead=dead)
+        rays8, tris9 = torch.as_tensor(rays8, device=cuda), torch.as_tensor(tris9, device=cuda)
+        before = k1.launches
+        t, p = k1.tri_t_pass_cuda(rays8, tris9, n)
+        assert k1.launches == before + 1
+        t_ref, p_ref = k1.tri_t_pass_plain(rays8, tris9, n)
+        _bit_equal(t, p, t_ref, p_ref)
+        p = p.cpu().numpy()
+        assert (p[info["dead"]] == -1).all()
+        if dead == "half":
+            bits = t.view(torch.int32).cpu().numpy()
+            assert info["neg_zero"].sum() > 10 and (bits[info["neg_zero"]] == -(1 << 31)).all()
+            assert info["pos_zero"].sum() > 10 and (bits[info["pos_zero"]] == 0).all()
+            assert np.isin(p, info["dup_src"]).sum() > 100 and not np.isin(p, info["dup_dst"]).any()
+        else:
+            assert (p == -1).all()
 
 
 def test_k2_kernel_matches_plain_and_brute(cuda):

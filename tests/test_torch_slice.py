@@ -22,6 +22,8 @@ from pbrt_tpu_torch.scene import api as t_api
 from pbrt_tpu_torch.scene import parser as t_parser
 from pbrt_tpu_torch.scene.compile import compile_scene as t_compile
 
+torch.set_num_threads(1)  # small tensors: intra-op threads only contend with the other test workers
+
 
 def uv_sphere(n, radius, center):
     th = np.linspace(0.0, np.pi, n + 1)

@@ -17,6 +17,8 @@ from pbrt_tpu_torch.core import sampling as tsampling
 from pbrt_tpu_torch.samplers import samplers as tsamplers
 from pbrt_tpu_torch.scene.paramset import ParamSet as TParamSet
 
+torch.set_num_threads(1)  # small tensors: intra-op threads only contend with the other test workers
+
 N = 1 << 20  # counters per stream
 
 
