@@ -14,7 +14,12 @@ and cut into the render's 65,536-ray traversals), renders the
 135k-triangle bench scene (wide pipeline, kernel K2) and a small
 mixed-material scene (flat t-pass, kernel K1) through the CLI entry
 point, checks the images, renders each scene once more with CUDA events
-around every launch of its kernel, and prints one JSON line per the
+around every launch of its kernel, renders the reference-binary goldens
+matte, meshdl, mesh, smoke and vol (quadrics, directlighting, path,
+single scattering) against their reference images and the CPU render
+([9]), renders benchvol (the bench geometry with a glass sphere, a disk
+light and a homogeneous volume) with event spans around the quadric
+fold, the volume march and K2 ([10]), and prints one JSON line per the
 contract below. Every phase raises on failure; the script then exits
 non-zero and prints no result. It needs no network and no JAX.
 
@@ -57,6 +62,13 @@ RENDER_RAYS = 1 << 16  # rays per traversal in the render (renderers/driver.py t
 MT_FLOPS = 46          # float32 operations of one Moller-Trumbore test
 PEAK_F32 = 67e12       # H100 SXM float32 outside the tensor cores, FLOP/s (data sheet)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (data sheet)
+GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
+# the reference-binary goldens the port renders, with the bounds of
+# tests/test_reference_golden.py: (scene, mean-level rtol, mean abs diff / level)
+GOLDENS = (("matte", 0.02, 0.03), ("meshdl", 0.03, 0.08), ("mesh", 0.05, 0.15),
+           ("smoke", 0.05, 0.10), ("vol", 0.05, 0.08))
+BENCHVOL_RES = 1024
+BENCHVOL_CHECK_RES = 16   # benchvol's card-vs-CPU check
 
 
 def log(msg):
@@ -109,6 +121,30 @@ def bench_scene_text(res):
             'LookAt 0 1.2 -4  0 0.4 0  0 1 0\nCamera "perspective" "float fov" [45]\n'
             'SurfaceIntegrator "path" "integer maxdepth" [5]\nWorldBegin\n'
             'LightSource "point" "point from" [3 6 -4] "rgb I" [60 60 60]\n'
+            'Material "matte" "rgb Kd" [.45 .35 .65]\n' + mesh(P, idx)
+            + 'Material "matte" "rgb Kd" [.55 .55 .5]\n' + mesh(FLOOR, FLOOR_IDX)
+            + "WorldEnd\n")
+
+
+def benchvol_scene_text(res):
+    """The bench geometry (135,202 triangles) with a dispersive glass
+    sphere, a disk area light facing down, the bench point light and a
+    homogeneous volume over the scene; directlighting (maxdepth 5) and
+    single scattering (stepsize 0.5: 16 march steps over the box)."""
+    P, idx = uv_sphere(260, 260, 1.0, (0.0, 0.4, 0.0))
+    return (f'Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]\n'
+            'Sampler "lowdiscrepancy" "integer pixelsamples" [1]\n'
+            'LookAt 0 1.2 -4  0 0.4 0  0 1 0\nCamera "perspective" "float fov" [45]\n'
+            'SurfaceIntegrator "directlighting" "integer maxdepth" [5]\n'
+            'VolumeIntegrator "single" "float stepsize" [0.5]\nWorldBegin\n'
+            'LightSource "point" "point from" [3 6 -4] "rgb I" [60 60 60]\n'
+            'AttributeBegin\nTranslate 0 3 0\nRotate 90 1 0 0\n'
+            'AreaLightSource "diffuse" "rgb L" [10 10 10]\n'
+            'Shape "disk" "float radius" [1]\nAttributeEnd\n'
+            'Volume "homogeneous" "point p0" [-2.5 -0.6 -2.5] "point p1" [2.5 2.0 2.5]\n'
+            '    "rgb sigma_a" [0.05 0.05 0.05] "rgb sigma_s" [0.15 0.15 0.15] "float g" [0.3]\n'
+            'AttributeBegin\nMaterial "glass" "float index" [1.52] "float Vn" [64.17]\n'
+            'Translate 1.6 0 0.2\nShape "sphere" "float radius" [0.5]\nAttributeEnd\n'
             'Material "matte" "rgb Kd" [.45 .35 .65]\n' + mesh(P, idx)
             + 'Material "matte" "rgb Kd" [.55 .55 .5]\n' + mesh(FLOOR, FLOOR_IDX)
             + "WorldEnd\n")
@@ -643,6 +679,187 @@ def profile_render(scene_text, tmp):
             "k2_rows": [[k[:60], us / 1e3, c] for k, us, c in k2_rows]}
 
 
+def agree(gpu, cpu, what):
+    """[7]'s limits between a card render and a CPU render of one scene:
+    image mean within 0.5%, 99% of pixels within 1e-3 relative."""
+    rel = (np.abs(gpu - cpu) / np.maximum(np.abs(cpu), 1e-6)).max(-1)
+    mean_rel = float(abs(gpu.mean() - cpu.mean()) / cpu.mean())
+    within = float((rel <= 1e-3).mean())
+    log(f"  {what}: card vs CPU mean rel diff {mean_rel:.3g}, pixels within 1e-3: {within:.4f}")
+    if mean_rel > 5e-3 or within < 0.99:
+        raise RuntimeError(f"{what}: card render disagrees with the CPU render")
+    return mean_rel, within
+
+
+class NoPlain:
+    """While active, the plain twins of K1 and K2 and the triangle brute
+    force raise: a render on the card must not reach them."""
+
+    def __enter__(self):
+        from pbrt_tpu_torch.accel import intersect
+        from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+
+        def refuse(*args, **kw):
+            raise RuntimeError("a plain twin ran on the card's main path")
+
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (intersect_cuda, "tri_t_pass_plain"), (bvh_cuda, "wide_sweep_plain"),
+            (intersect, "t_pass_brute"))]
+        for m, n, _ in self.saved:
+            setattr(m, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+class Patched:
+    """Replaces module attributes for the length of a with block."""
+
+    def __init__(self, *triples):
+        self.triples = triples
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.triples]
+        for m, n, f in self.triples:
+            setattr(m, n, f)
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+class AnyHitCounter:
+    """Stands in for bvh_cuda.wide_t_pass: counts the K2 launches of
+    closest-hit and of any-hit traversals."""
+
+    def __init__(self, bvh_cuda):
+        self.m, self.fn = bvh_cuda, bvh_cuda.wide_t_pass
+        self.any_hit = self.closest = 0
+
+    def __call__(self, *args, any_hit=False, **kw):
+        before = self.m.launches
+        out = self.fn(*args, any_hit=any_hit, **kw)
+        if any_hit:
+            self.any_hit += self.m.launches - before
+        else:
+            self.closest += self.m.launches - before
+        return out
+
+
+def phase_goldens(tmp):
+    """[9]: the reference-binary goldens through the CLI on the card at
+    their authored size and spp, against the reference images and the
+    CPU render; every K1 launch of the scenes with triangles held bit for
+    bit against the plain twin in a second render. -> per scene dict."""
+    from pbrt_tpu_torch.io.image import read_image
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+
+    out = {}
+    for name, mean_rtol, pix_bound in GOLDENS:
+        with open(os.path.join(GOLDEN_DIR, f"{name}.pbrt")) as f:
+            text = f.read()
+        ref = np.asarray(read_image(os.path.join(GOLDEN_DIR, f"ref_{name}.pfm")))
+        intersect_cuda.launches = 0
+        bvh_cuda.launches = 0
+        with NoPlain():
+            img, sec = render(text, f"golden_{name}", tmp)
+        k1_launches, k2_launches = intersect_cuda.launches, bvh_cuda.launches
+        level = max(float(ref.mean()), 1e-6)
+        mean_ratio = float(img.mean()) / level
+        mad_ratio = float(np.abs(img - ref).mean()) / level
+        ok = img.shape == ref.shape and abs(mean_ratio - 1) < mean_rtol and mad_ratio < pix_bound
+        log(f"  {name} {img.shape[1]}x{img.shape[0]}: {sec:.2f} s, K1 launches {k1_launches}, "
+            f"K2 launches {k2_launches}; vs reference binary: mean level ratio "
+            f"{mean_ratio:.4f} (bound |1 - r| < {mean_rtol}), mean abs diff / level "
+            f"{mad_ratio:.4f} (bound {pix_bound}): {'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"golden {name} outside the reference-binary bounds")
+        cpu, cpu_sec = render(text, f"golden_{name}_cpu", tmp, extra=("--device", "cpu"))
+        mean_rel, within = agree(img, cpu, f"{name} ({cpu_sec:.2f} s on the CPU)")
+        row = {"seconds": sec, "k1_launches": k1_launches, "k2_launches": k2_launches,
+               "mean_ratio": mean_ratio, "mad_ratio": mad_ratio, "bounds": [mean_rtol, pix_bound],
+               "pass": ok, "cpu_mean_rel": mean_rel, "cpu_within_1e-3": within}
+        if k1_launches:
+            rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
+            with Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
+                render(text, f"golden_{name}_checked", tmp)
+            r = rec.summary()
+            if r["launches"] != k1_launches:
+                raise RuntimeError(f"{name}: K1 launches differ between renders: "
+                                   f"{r['launches']} vs {k1_launches}")
+            log(f"  {name}: every one of {r['launches']} K1 launches bit-equal to the plain "
+                f"twin; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, live share "
+                f"{r['live_share']:.4f}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            row["k1"] = r
+        out[name] = row
+    return out
+
+
+def phase_benchvol(tmp):
+    """[10]: benchvol through the CLI on the card (timed), again with
+    CUDA events around every quadric fold, volume march and K2 launch,
+    then at BENCHVOL_CHECK_RES^2 on the card and the CPU. -> dict."""
+    from pbrt_tpu_torch.accel import bvh as bvh_mod
+    from pbrt_tpu_torch.integrators import volume as vol_int
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+
+    res = BENCHVOL_RES
+    intersect_cuda.launches = 0
+    bvh_cuda.launches = 0
+    with NoPlain():
+        img, sec = render(benchvol_scene_text(res), "benchvol", tmp)
+    k2_launches, k1_launches = bvh_cuda.launches, intersect_cuda.launches
+    log(f"  {res}x{res}, 1 spp: {sec:.2f} s end to end (parse + compile + BVH build + render), "
+        f"{res * res / sec:.0f} camera rays/s, image mean {img.mean():.5f}, K2 launches "
+        f"{k2_launches}, K1 launches {k1_launches}")
+    if k2_launches <= 0:
+        raise RuntimeError("benchvol render did not launch K2")
+
+    quad = LaunchTimer(bvh_mod.quad_t_pass)
+    march = LaunchTimer(vol_int.li_single)
+    k2 = LaunchTimer(bvh_cuda.wide_sweep_cuda, work=k2_work)
+    kinds = AnyHitCounter(bvh_cuda)
+    bvh_cuda.launches = 0
+    with NoPlain(), Patched((bvh_mod, "quad_t_pass", quad), (vol_int, "li_single", march),
+                            (bvh_cuda, "wide_sweep", k2), (bvh_cuda, "wide_t_pass", kinds)):
+        _, sec_ev = render(benchvol_scene_text(res), "benchvol_events", tmp)
+    if bvh_cuda.launches != k2_launches:
+        raise RuntimeError(f"benchvol: K2 launches differ between renders: "
+                           f"{bvh_cuda.launches} vs {k2_launches}")
+    work = k2.work_rows()
+    per_launch = [k2_launch_bound(*w) for w in work]
+    spans = {"quad_t_pass_ms": quad.total_ms(), "quad_t_pass_calls": len(quad.events),
+             "li_single_ms": march.total_ms(), "li_single_calls": len(march.events),
+             "k2_ms": k2.total_ms(), "k2_launches": len(k2.events),
+             "k2_pairs": sum(w[0] for w in work),
+             "k2_bound_ms": sum(max(f, b) for f, b in per_launch)}
+    log(f"  again with events: {sec_ev:.2f} s end to end; K2 launches {k2_launches} "
+        f"({kinds.any_hit} any-hit, {kinds.closest} closest-hit); event spans: quadric fold "
+        f"{spans['quad_t_pass_ms']:.1f} ms over {spans['quad_t_pass_calls']} calls, volume "
+        f"march (li_single, shadow traversals included) {spans['li_single_ms']:.1f} ms over "
+        f"{spans['li_single_calls']} calls, K2 {spans['k2_ms']:.1f} ms over "
+        f"{spans['k2_launches']} launches ({spans['k2_pairs']} (tile, block) pairs, bound "
+        f"{spans['k2_bound_ms']:.3f} ms)")
+    # the CPU traces the wide pipeline in plain torch, one pair step at a
+    # time (145 s at 32^2 on the H100's host, 96 s at 16^2): 16^2, in one
+    # tile of exactly its camera rays (a larger tile would pad it with
+    # copies of the last pixel's rays, which the CPU would trace too)
+    res_check = BENCHVOL_CHECK_RES
+    text = benchvol_scene_text(res_check)
+    tile = ("--tile-samples", str(res_check * res_check))
+    gpu, _ = render(text, "benchvol_check_gpu", tmp, extra=tile)
+    cpu, cpu_sec = render(text, "benchvol_check_cpu", tmp, extra=(*tile, "--device", "cpu"))
+    mean_rel, within = agree(gpu, cpu, f"benchvol {res_check}x{res_check} ({cpu_sec:.2f} s "
+                             f"on the CPU)")
+    return {"res": res, "seconds": sec, "camera_rays_per_s": res * res / sec,
+            "seconds_with_events": sec_ev, "k2_launches": k2_launches,
+            "k2_any_hit_launches": kinds.any_hit, "k2_closest_launches": kinds.closest,
+            "k1_launches": k1_launches, "spans": spans, "check_res": res_check,
+            "cpu_seconds": cpu_sec, "cpu_mean_rel": mean_rel, "cpu_within_1e-3": within}
+
+
 def render(scene_text, out_name, tmp, extra=()):
     """Write the scene and render it through the CLI entry point."""
     from pbrt_tpu_torch import main as cli
@@ -805,17 +1022,25 @@ def main():
         gpu, _ = render(text, "check_gpu", tmp, extra=("--tile-samples", "4096"))
         cpu, _ = render(text, "check_cpu", tmp,
                         extra=("--tile-samples", "4096", "--device", "cpu"))
-        rel = (np.abs(gpu - cpu) / np.maximum(np.abs(cpu), 1e-6)).max(-1)
-        mean_rel = abs(gpu.mean() - cpu.mean()) / cpu.mean()
-        log(f"  mean rel diff {mean_rel:.3g}, pixels within 1e-3: {(rel <= 1e-3).mean():.4f}")
-        if mean_rel > 5e-3 or (rel <= 1e-3).mean() < 0.99:
-            raise RuntimeError("card render disagrees with the CPU render")
+        agree(gpu, cpu, "small 32x32")
+        log(f"[8] phases [1]-[7] passed in {time.perf_counter() - t_start:.1f} s")
 
-    # K1: every launch of the small render (set3: 65,536 rays x 4,096
-    # triangles); K2: the three 1024^2 ray sets in the render's 65,536-ray
-    # traversals (sums over every wave; by_set has each set at both
-    # shapes). No single PyTorch call computes either.
-    log(f"[8] all phases passed in {time.perf_counter() - t_start:.1f} s")
+        log("[9] the reference-binary goldens on the card (authored size and spp)")
+        goldens = phase_goldens(tmp)
+        log(f"[10] benchvol (bench geometry + glass sphere + disk light + homogeneous "
+            f"volume; directlighting maxdepth 5, single scattering, 16 march steps)")
+        benchvol = phase_benchvol(tmp)
+
+    # K1: every launch of the small render and of the goldens (set3:
+    # 65,536 rays x 4,096 triangles); K2: the three 1024^2 ray sets in the
+    # render's 65,536-ray traversals (sums over every wave; by_set has each
+    # set at both shapes), launches of the bench and benchvol renders. No
+    # single PyTorch call computes either.
+    k1["goldens"] = goldens
+    k1["launches"] += sum(g["k1_launches"] for g in goldens.values())
+    k2["benchvol"] = benchvol
+    k2["launches"] += benchvol["k2_launches"]
+    log(f"  all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": "k1_sweep_kernel", "route": "cuda",
          "source": "pbrt_tpu_torch/csrc/intersect.cu",
@@ -825,7 +1050,7 @@ def main():
          "replaces": "pbrt_tpu/ops/bvh_pallas.py:54", "library_ms": None,
          "sass": sass_of(sass, "k2_sweep_kernel"), **k2},
     ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels}, default=lambda x: x.item()))  # NumPy scalars
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,10 @@ port's build directory; accel/wide_bvh.py then collapses it into
 128-triangle leaf blocks. The dispatch follows the reference's TPU
 branch: scenes with at least WIDE_THRESHOLD triangles use the packet
 pipeline (ops/bvh_cuda.py, kernel K2), smaller ones the flat t-pass
-(ops/intersect_cuda.py, kernel K1).
+(ops/intersect_cuda.py, kernel K1); the quadrics are then folded into
+the triangles' result (accel/intersect.py quad_t_pass). A scene without
+triangles folds its quadrics into empty accumulators and runs no
+triangle t-pass.
 """
 from __future__ import annotations
 
@@ -20,15 +23,17 @@ import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from pbrt_tpu_torch.core.error import PbrtError, info
 from pbrt_tpu_torch.core.geometry import Ray
-from pbrt_tpu_torch.accel.intersect import SceneGeom, reconstruct
+from pbrt_tpu_torch.accel.intersect import BIG, SceneGeom, quad_t_pass, reconstruct
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE_SRC = os.path.join(_PKG, "csrc", "bvh_builder.cpp")
 _BUILD_ROOT = os.path.join(_PKG, "_build")
 WIDE_THRESHOLD = 8192
+BVH_THRESHOLD = 32768   # primitives above which the reference traverses a binary BVH
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -113,7 +118,8 @@ def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
 
 class BvhScene(NamedTuple):
     """Geometry + acceleration: the wide packet pipeline (K2) for
-    triangle-heavy scenes, the flat t-pass (K1) otherwise."""
+    triangle-heavy scenes, the flat t-pass (K1) for other scenes with
+    triangles, and the quadric fold after either (or alone)."""
 
     geom: SceneGeom
     tri_soa: object = None   # ops.intersect_cuda.TriSoA
@@ -123,11 +129,18 @@ class BvhScene(NamedTuple):
         if self.wide is not None:
             from pbrt_tpu_torch.ops.bvh_cuda import wide_t_pass
 
-            return wide_t_pass(self.wide, ray.o, ray.d, ray.tmin, ray.tmax,
-                               any_hit=any_hit, coherent=coherent)
-        from pbrt_tpu_torch.ops.intersect_cuda import tri_t_pass
+            t, prim = wide_t_pass(self.wide, ray.o, ray.d, ray.tmin, ray.tmax,
+                                  any_hit=any_hit, coherent=coherent)
+        elif self.tri_soa is not None:
+            from pbrt_tpu_torch.ops.intersect_cuda import tri_t_pass
 
-        return tri_t_pass(self.tri_soa, ray.o, ray.d, ray.tmin, ray.tmax)
+            t, prim = tri_t_pass(self.tri_soa, ray.o, ray.d, ray.tmin, ray.tmax)
+        else:  # no triangles: empty accumulators (quad_t_pass starts from tmax)
+            t = torch.full(ray.tmin.shape, BIG, device=ray.o.device)
+            prim = torch.full(ray.tmin.shape, -1, dtype=torch.int64, device=ray.o.device)
+        if self.geom.n_quads > 0:
+            t, prim = quad_t_pass(self.geom, ray, t, prim)
+        return t, prim
 
     def intersect(self, ray: Ray, coherent: bool = False):
         t, prim = self._t_pass(ray, coherent=coherent)
@@ -141,14 +154,22 @@ class BvhScene(NamedTuple):
 def make_accel(geom: SceneGeom, split_method: str = "sah", force: str = "") -> BvhScene:
     """Pick the acceleration strategy for a compiled scene (reference
     make_accel, TPU branch): wide for >= WIDE_THRESHOLD triangles unless
-    `force == "flat"` (Accelerator "none"), flat otherwise."""
-    if force != "flat" and geom.n_tris >= WIDE_THRESHOLD:
+    `force == "flat"` (Accelerator "none"), flat otherwise. The
+    reference's binary-BVH traversal for more than BVH_THRESHOLD
+    triangles and quadrics is not yet ported."""
+    n_prims = geom.n_tris + geom.n_quads
+    use_wide = force != "flat" and geom.n_tris >= WIDE_THRESHOLD
+    if not use_wide and force != "flat" and n_prims > BVH_THRESHOLD:
+        raise PbrtError(f"not yet ported: binary BVH traversal (t_pass_bvh) for "
+                        f"{n_prims} primitives with fewer than {WIDE_THRESHOLD} triangles")
+    if use_wide:
         from pbrt_tpu_torch.accel.wide_bvh import build_wide_bvh
 
         v0, e1, e2 = (x.cpu().numpy() for x in (geom.tri_v0, geom.tri_e1, geom.tri_e2))
         narrow = build_bvh(v0, e1, e2, split_method)
-        wide = build_wide_bvh(narrow, v0, e1, e2, geom.tri_v0.device)
-        return BvhScene(geom=geom, wide=wide)
+        return BvhScene(geom=geom, wide=build_wide_bvh(narrow, v0, e1, e2, geom.tri_v0.device))
+    if geom.n_tris == 0:
+        return BvhScene(geom=geom)
     from pbrt_tpu_torch.ops.intersect_cuda import TriSoA
 
     return BvhScene(geom=geom, tri_soa=TriSoA(geom.tri_v0, geom.tri_e1, geom.tri_e2))

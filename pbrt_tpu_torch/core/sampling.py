@@ -1,11 +1,11 @@
 """Monte Carlo sampling substrate, vectorized over wavefront batches.
 
-Port of the parts of pbrt_tpu/core/sampling.py the main path uses:
-Distribution1D (light pick), the concentric disk and cosine hemisphere
-warps, triangle sampling, the power heuristic, and the base-2
-low-discrepancy points. uint32 arithmetic is carried in int64 tensors
-masked to 32 bits after every step, so the bit streams equal the JAX
-package's.
+Port of the parts of pbrt_tpu/core/sampling.py the ported paths use:
+Distribution1D (light pick), the sphere, cone, concentric disk and
+cosine hemisphere warps, triangle sampling, the power heuristic, the
+Henyey-Greenstein phase function, and the base-2 low-discrepancy
+points. uint32 arithmetic is carried in int64 tensors masked to 32 bits
+after every step, so the bit streams equal the JAX package's.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 INV_PI = 1.0 / math.pi
+INV_FOURPI = 1.0 / (4.0 * math.pi)
 M32 = 0xFFFFFFFF
 
 
@@ -65,6 +66,24 @@ class Distribution1D(NamedTuple):
 # ---------------------------------------------------------------------------
 # Shape sampling (reference montecarlo.h:117-141 and .cpp)
 
+def uniform_sample_sphere(u1, u2):
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
+def uniform_sample_cone(u1, u2, cos_theta_max):
+    cos_t = (1.0 - u1) + u1 * cos_theta_max
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = 2.0 * math.pi * u2
+    return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t], -1)
+
+
+def uniform_cone_pdf(cos_theta_max):
+    return 1.0 / (2.0 * math.pi * torch.clamp(1.0 - cos_theta_max, min=1e-8))
+
+
 def concentric_sample_disk(u1, u2):
     """Shirley-Chiu concentric map, branch-free."""
     sx = 2.0 * u1 - 1.0
@@ -104,6 +123,14 @@ def power_heuristic(nf, f_pdf, ng, g_pdf):
     f = nf * f_pdf
     g = ng * g_pdf
     return (f * f) / torch.clamp(f * f + g * g, min=1e-30)
+
+
+def phase_hg(cos_t, g):
+    """Henyey-Greenstein phase function (reference core/volume.cpp)."""
+    g2 = g * g
+    denom = 1.0 + g2 + 2.0 * g * cos_t
+    return INV_FOURPI * (1.0 - g2) / torch.clamp(
+        denom * torch.sqrt(torch.clamp(denom, min=1e-12)), min=1e-12)
 
 
 # ---------------------------------------------------------------------------

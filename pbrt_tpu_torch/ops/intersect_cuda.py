@@ -60,19 +60,27 @@ def _stage_min(rays8, tris9, s: int):
 
 def tri_t_pass_plain(rays8, tris9, n_tris: int):
     """Plain torch twin of the kernel: (t [R], prim [R] int32). Stages
-    fold in index order with a strict '<'."""
+    fold in index order with a strict '<'. Only live rays (tmin < tmax)
+    are tested, and only the n_tris real triangles: a dead ray or a
+    padding triangle yields no candidate, so leaving them out changes
+    no bit of the result."""
     R = rays8.shape[0]
     dev = rays8.device
     big = torch.full((), BIG, device=dev)
-    t_best = torch.full((R,), BIG, device=dev)
-    p_best = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    for s in range(tris9.shape[1] // TB):
-        t_blk, prim = _stage_min(rays8, tris9, s)
+    live = rays8[:, 6] < rays8[:, 7]
+    rays = rays8[live]
+    t_best = torch.full((rays.shape[0],), BIG, device=dev)
+    p_best = torch.full((rays.shape[0],), -1, dtype=torch.int32, device=dev)
+    for s in range(_round_up(n_tris, TB) // TB):
+        t_blk, prim = _stage_min(rays, tris9[:, :n_tris], s)
         better = t_blk < t_best
         t_best = torch.where(better, t_blk, t_best)
         p_best = torch.where(better, prim.to(torch.int32), p_best)
-    miss = (p_best < 0) | (p_best >= n_tris) | (t_best >= BIG)
-    return torch.where(miss, big, t_best), torch.where(miss, -1, p_best)
+    t = torch.full((R,), BIG, device=dev)
+    p = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    t[live], p[live] = t_best, p_best
+    miss = (p < 0) | (p >= n_tris) | (t >= BIG)
+    return torch.where(miss, big, t), torch.where(miss, -1, p)
 
 
 def key_of_t(t):

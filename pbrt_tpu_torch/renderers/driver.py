@@ -3,8 +3,8 @@
 Port of the sampler path of pbrt_tpu/renderers/driver.py (reference
 renderers/samplerrenderer.cpp:190-249). The image is cut into tiles of
 camera samples (65536 by default); each tile runs camera raygen ->
-path Li -> filtered film deposit on the scene's device, and tiles
-stream on the host.
+surface Li -> volume Li -> filtered film deposit on the scene's device,
+and tiles stream on the host.
 """
 from __future__ import annotations
 
@@ -15,15 +15,20 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.core.error import PbrtError, info, progress, warning
+from pbrt_tpu_torch.core.geometry import Ray
+from pbrt_tpu_torch.core.sampling import mul32
 from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.cameras.cameras import make_camera
 from pbrt_tpu_torch.film import film as film_mod
-from pbrt_tpu_torch.integrators.surface import li_path
+from pbrt_tpu_torch.integrators import surface as surf_int
+from pbrt_tpu_torch.integrators import volume as vol_int
 from pbrt_tpu_torch.samplers.samplers import camera_samples, make_sampler
 from pbrt_tpu_torch.scene.compile import CompiledScene, compile_scene
 from pbrt_tpu_torch.scene.records import RenderOptions
 
 DEFAULT_TILE_SAMPLES = 1 << 16
+BIG = 1e30
+M32 = 0xFFFFFFFF
 
 
 def render_scene(ro: RenderOptions, options: Optional[dict] = None):
@@ -45,12 +50,95 @@ def render_scene(ro: RenderOptions, options: Optional[dict] = None):
     return render_sampler(scene, ro, film, camera, sampler, options)
 
 
+def position_hash_u(p):
+    """A uniform in [0, 1) per point from the bits of p * 4096 (float32
+    bit-cast to uint32, multiplies wrapping mod 2^32, done in int64)."""
+    bits = (p.to(torch.float32) * 4096.0).contiguous().view(torch.int32).to(torch.int64) & M32
+    h = mul32(bits[:, 0], 0x9E3779B9)
+    h = h ^ mul32(bits[:, 1], 0x85EBCA6B)
+    h = h ^ mul32(bits[:, 2], 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    h = mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    return (h >> 8).to(torch.float32) * (1.0 / 16777216.0)
+
+
+def _make_transmittance_fn(scene: CompiledScene, n_steps: int):
+    if scene.volume is None:
+        return None
+
+    def fn(p, wi, dist):
+        # the march's offset jitter comes from a position hash:
+        # deterministic per shading point, decorrelated across points
+        return vol_int.transmittance(scene.volume, p, wi, dist, n_steps, position_hash_u(p))
+
+    return fn
+
+
+def build_li_fn(scene: CompiledScene, ro: RenderOptions, options: dict):
+    """Compose surface + volume Li into one wavefront radiance fn
+    (reference samplerrenderer.cpp:228-249 SamplerRenderer::Li:
+    return T * Li_surface + Li_volume). Integrator names the JAX package
+    knows and this package does not were refused by compile_scene;
+    names neither knows warn and fall back as the JAX package does."""
+    sname, sp = ro.surf_integrator_name, ro.surf_integrator_params
+    vname, vp = ro.vol_integrator_name, ro.vol_integrator_params
+    quick = bool(options.get("quick"))
+    max_depth = sp.find_one_int("maxdepth", 5)
+    step_size = vp.find_one_float("stepsize", 1.0)
+    n_steps = 16
+    if scene.volume is not None:
+        n_steps = vol_int.pick_n_steps(scene.volume, step_size, cap=32 if quick else 128)
+    trans_fn = _make_transmittance_fn(scene, max(4, n_steps // 2))
+    if sname not in ("path", "directlighting", "whitted", "ambientocclusion"):
+        warning(f'SurfaceIntegrator "{sname}" unknown; using "path".')
+        sname = "path"
+    if scene.volume is not None and vname not in ("none", "emission", "single"):
+        warning(f'VolumeIntegrator "{vname}" unknown; using "single".')
+        vname = "single"
+
+    def surface_li(ray, pixel, sidx, seed):
+        if sname == "directlighting":
+            return surf_int.li_direct(scene, ray, pixel, sidx, max_depth=max_depth, seed=seed,
+                                      strategy=sp.find_one_string("strategy", "all"),
+                                      transmittance_fn=trans_fn)
+        if sname == "whitted":
+            return surf_int.li_whitted(scene, ray, pixel, sidx, max_depth=max_depth,
+                                       seed=seed, transmittance_fn=trans_fn)
+        if sname == "ambientocclusion":
+            ns = sp.find_one_int("nsamples", 16 if quick else 2048)
+            return surf_int.li_ao(scene, ray, pixel, sidx, n_samples=min(ns, 64),
+                                  max_dist=sp.find_one_float("maxdist", BIG), seed=seed)
+        return surf_int.li_path(scene, ray, pixel, sidx, max_depth=max_depth, seed=seed,
+                                transmittance_fn=trans_fn)
+
+    def volume_li(ray, t_surf, pixel, sidx, seed):
+        if vname == "emission":
+            return vol_int.li_emission(scene.volume, ray, t_surf, pixel, sidx, n_steps, seed)
+        return vol_int.li_single(scene, ray, t_surf, pixel, sidx, n_steps, seed)
+
+    def li(ray: Ray, pixel, sidx, seed: int):
+        L_surf = surface_li(ray, pixel, sidx, seed)
+        if scene.volume is None or vname == "none":   # Tr = 1, L_volume = 0
+            return L_surf
+        hit_t, _prim = first_hit_t(scene, ray)
+        vr = volume_li(ray, hit_t, pixel, sidx, seed)
+        return vr.Tr * L_surf + vr.L
+
+    return li
+
+
+def first_hit_t(scene: CompiledScene, ray: Ray):
+    """The camera rays' first hit (t, BIG on a miss; prim), by a second
+    traversal of the same rays."""
+    hit = scene.intersect(ray, coherent=True)
+    return torch.where(hit.valid, hit.t, torch.full((), BIG, device=hit.t.device)), hit.prim
+
+
 def render_sampler(scene: CompiledScene, ro: RenderOptions, film, camera, sampler,
                    options: dict):
     """The tile-streaming render loop."""
-    if ro.surf_integrator_name != "path":
-        warning(f'SurfaceIntegrator "{ro.surf_integrator_name}" unknown; using "path".')
-    max_depth = ro.surf_integrator_params.find_one_int("maxdepth", 5)
+    li_fn = build_li_fn(scene, ro, options)
     seed = int(options.get("seed", 0))
     spp = sampler.spp
     device = scene.geom.tri_v0.device
@@ -75,7 +163,7 @@ def render_sampler(scene: CompiledScene, ro: RenderOptions, film, camera, sample
         cs = camera_samples(sampler, pix_x, pix_y, film.xres, seed)
         ray, rw = camera.generate_rays(cs.px, cs.py, cs.u_lens1, cs.u_lens2, cs.u_time)
         sidx = torch.arange(spp, dtype=torch.int64, device=device).repeat(len(ids))
-        L = li_path(scene, ray, cs.pixel, sidx, max_depth=max_depth, seed=seed)
+        L = li_fn(ray, cs.pixel, sidx, seed)
         # reference samplerrenderer.cpp:119-133 black-pixel fallback for NaN/inf
         L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
         film_mod.add_samples(film, state, cs.px, cs.py, L, rw)

@@ -1,9 +1,10 @@
 """Scene compiler: host records -> device tensors.
 
-Port of the slice of pbrt_tpu/scene/compile.py the main path needs:
-triangle meshes, point and diffuse area lights, and the matte,
-plastic, mirror and glass materials with constant textures. Everything
-else a scene may use fails here with "not yet ported: <name>" — the
+Port of the slice of pbrt_tpu/scene/compile.py the ported paths need:
+triangle meshes and quadrics, point and diffuse area lights (on meshes
+and quadrics), volume regions, and the matte, plastic, mirror and glass
+materials with constant textures. Everything else a scene may use that
+the JAX package knows fails here with "not yet ported: <name>" — the
 compiler never substitutes something else.
 """
 from __future__ import annotations
@@ -17,19 +18,25 @@ import torch
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.error import PbrtError, info, warning
 from pbrt_tpu_torch.core.sampling import Distribution1D
-from pbrt_tpu_torch.core.transform import Transform
-from pbrt_tpu_torch.accel.intersect import SceneGeom, make_tri_pack
+from pbrt_tpu_torch.core.transform import Transform, xform_point_affine
+from pbrt_tpu_torch.accel.intersect import SceneGeom, make_quad_pack, make_tri_pack
 from pbrt_tpu_torch.lights.lighting import L_AREA, L_POINT, LightsT
 from pbrt_tpu_torch.materials.bsdf import PORTED_KINDS, BsdfParams
 from pbrt_tpu_torch.materials.registry import KIND_ID
 from pbrt_tpu_torch.scene.records import MaterialRecord, RenderOptions, ShapeRecord
-from pbrt_tpu_torch.shapes.registry import make_shape
+from pbrt_tpu_torch.shapes.registry import QUAD_SPHERE, make_shape, tessellate_quadric
 from pbrt_tpu_torch.textures.registry import ConstantTexture
+from pbrt_tpu_torch.volumes.registry import VolumeT, build_volumes
 
 S = spec.N_BINS
 
 _LIGHTS_NOT_PORTED = ("spot", "goniometric", "projection", "distant", "infinite",
                       "exinfinite")
+# names the JAX package renders and this package does not yet; names
+# that neither knows warn and fall back in the render driver
+_SURF_NOT_PORTED = ("igi", "irradiancecache", "dipolesubsurface", "diffuseprt", "glossyprt",
+                    "useprobes", "photonmap", "exphotonmap")
+_VOL_NOT_PORTED = ("photonvolume",)
 
 
 def not_ported(what: str):
@@ -48,6 +55,11 @@ class CompiledScene:
     world_lo: np.ndarray
     world_hi: np.ndarray
     accel: object = None                   # accel.bvh.BvhScene
+    volume: Optional[VolumeT] = None
+
+    @property
+    def n_lights(self) -> int:
+        return 0 if self.lights is None else int(self.lights.kind.shape[0])
 
     def intersect(self, ray, coherent=False):
         """coherent: the batch is beam-like (camera or shadow rays);
@@ -85,14 +97,10 @@ def _check_material(mat: MaterialRecord):
 def _check_options(ro: RenderOptions):
     if ro.renderer_name in ("metropolis", "aggregatetest", "surfacepoints", "createprobes"):
         not_ported(f'renderer "{ro.renderer_name}"')
-    if ro.surf_integrator_name in ("directlighting", "whitted", "ambientocclusion", "igi",
-                                   "irradiancecache", "dipolesubsurface", "diffuseprt",
-                                   "glossyprt", "useprobes", "photonmap", "exphotonmap"):
+    if ro.surf_integrator_name in _SURF_NOT_PORTED:
         not_ported(f'surface integrator "{ro.surf_integrator_name}"')
-    if ro.vol_integrator_name not in ("emission", "single", "none"):
+    if ro.vol_integrator_name in _VOL_NOT_PORTED:
         not_ported(f'volume integrator "{ro.vol_integrator_name}"')
-    if ro.volume_regions:
-        not_ported(f'volume "{ro.volume_regions[0].kind}"')
     if ro.accelerator_name in ("grid", "kdtree"):
         not_ported(f'accelerator "{ro.accelerator_name}"')
 
@@ -106,6 +114,7 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
     tri_v0, tri_e1, tri_e2 = [], [], []
     tri_n, tri_has_n, tri_uv = [], [], []
     tri_mat, tri_light = [], []
+    quads = []  # (QuadricData, mat, light)
 
     # Area lights get one LightsT row per emitting shape record.
     area_rows = []
@@ -130,7 +139,9 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
             li = len(area_rows)
             area_rows.append({
                 "L": lemit * scale, "nsamples": p.find_one_int("nsamples", 1),
-                "tri_start": sum(len(a) for a in al_v0), "tri_count": 0, "area": 0.0,
+                "tri_start": sum(len(a) for a in al_v0), "tri_count": 0,
+                "is_sphere": False, "center": np.zeros(3, np.float32), "radius": 0.0,
+                "area": 0.0,
             })
         for tri in sd.triangles:
             p = tri.p
@@ -163,6 +174,30 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
                 al_area.append(areas)
                 area_rows[li]["tri_count"] += len(idx)
                 area_rows[li]["area"] += float(areas.sum())
+        for q in sd.quadrics:
+            quads.append((q, mi, li))
+            if li < 0:
+                continue
+            r = float(q.params[0])
+            full_sphere = (q.qtype == QUAD_SPHERE and float(q.params[1]) <= -r + 1e-6
+                           and float(q.params[2]) >= r - 1e-6
+                           and float(q.params[3]) >= 2.0 * np.pi - 1e-5)
+            if full_sphere:
+                # analytic cone sampling (lights/lighting.py sample_light)
+                area_rows[li]["is_sphere"] = True
+                area_rows[li]["center"] = np.asarray(q.o2w[:3, 3], np.float32)
+                area_rows[li]["radius"] = r
+                area_rows[li]["area"] += 4.0 * np.pi * r * r
+            else:
+                # other quadric emitters are tessellated for light sampling
+                # only; intersection stays analytic
+                tv0, te1, te2, ta = tessellate_quadric(q)
+                al_v0.append(tv0)
+                al_e1.append(te1)
+                al_e2.append(te2)
+                al_area.append(ta)
+                area_rows[li]["tri_count"] += len(tv0)
+                area_rows[li]["area"] += float(ta.sum())
 
     for srec in ro.shapes:
         add_shape_record(srec)
@@ -188,24 +223,52 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
         TUV = np.zeros((0, 3, 2), np.float32)
         TM = TL = np.zeros((0,), np.int32)
 
-    allp = np.concatenate([TV0, TV0 + TE1, TV0 + TE2])
-    if not len(allp):
-        allp = np.zeros((1, 3), np.float32)
+    # world bound over the triangles and each quadric's transformed
+    # object-space box corners (conservative)
+    pts = [TV0, TV0 + TE1, TV0 + TE2]
+    for q, _, _ in quads:
+        r = abs(float(q.params[0]))
+        zmin, zmax = float(q.params[1]), float(q.params[2])
+        sph = q.qtype == QUAD_SPHERE
+        lo = (-r, -r, min(zmin, -r if sph else zmin))
+        hi = (r, r, max(zmax, r if sph else zmax))
+        corners = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                            for z in (lo[2], hi[2])])
+        pts.append(xform_point_affine(q.o2w, corners).astype(np.float32))
+    pts = [p for p in pts if len(p)]
+    allp = np.concatenate(pts) if pts else np.zeros((1, 3), np.float32)
     world_lo = allp.min(0) - 1e-3
     world_hi = allp.max(0) + 1e-3
 
     def dev(x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device).contiguous()
 
+    Q_type = np.asarray([q.qtype for q, _, _ in quads], np.int32)
+    Q_o2w = (np.stack([q.o2w for q, _, _ in quads]) if quads
+             else np.zeros((0, 4, 4), np.float32))
+    Q_w2o = (np.stack([q.w2o for q, _, _ in quads]) if quads
+             else np.zeros((0, 4, 4), np.float32))
+    Q_params = (np.stack([q.params for q, _, _ in quads]) if quads
+                else np.zeros((0, 8), np.float32))
+    Q_mat = np.asarray([m for _, m, _ in quads], np.int32)
+    Q_light = np.asarray([l for _, _, l in quads], np.int32)
+    Q_flip = np.asarray([q.reverse_orientation ^ q.swaps_handedness for q, _, _ in quads],
+                        bool)
     geom = SceneGeom(
         tri_v0=dev(TV0), tri_e1=dev(TE1), tri_e2=dev(TE2), tri_n=dev(TN),
         tri_has_n=dev(THN), tri_uv=dev(TUV), tri_mat=dev(TM), tri_light=dev(TL),
         world_lo=dev(world_lo, torch.float32), world_hi=dev(world_hi, torch.float32),
         tri_pack=dev(make_tri_pack(TV0, TE1, TE2, TN, TUV, THN, TM, TL)),
+        quad_type=dev(Q_type), quad_o2w=dev(Q_o2w), quad_w2o=dev(Q_w2o),
+        quad_params=dev(Q_params), quad_mat=dev(Q_mat), quad_light=dev(Q_light),
+        quad_flip=dev(Q_flip),
+        quad_pack=dev(make_quad_pack(Q_o2w, Q_w2o, Q_params, Q_type, Q_flip, Q_mat, Q_light)),
+        quad_present=frozenset(int(k) for k in Q_type),
     )
     lights, light_dist = _build_lights(ro, area_rows, al_v0, al_e1, al_e2, al_area, device)
+    volume = build_volumes(ro.volume_regions, device)
     disp = np.asarray([m.dispersive() for m in materials], bool)
-    info(f"compiled scene: {len(TV0)} tris, "
+    info(f"compiled scene: {len(TV0)} tris, {len(quads)} quadrics, "
          f"{0 if lights is None else int(lights.kind.shape[0])} lights, "
          f"{len(materials)} materials")
 
@@ -219,7 +282,7 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
     accel = make_accel(geom, split, force="flat" if accel_name == "none" else "")
     return CompiledScene(geom=geom, lights=lights, light_dist=light_dist,
                          materials=materials, material_dispersive=dev(disp),
-                         world_lo=world_lo, world_hi=world_hi, accel=accel)
+                         world_lo=world_lo, world_hi=world_hi, accel=accel, volume=volume)
 
 
 def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area, device):
@@ -253,7 +316,9 @@ def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area, de
         p.report_unused(f'in light "{name}"')
 
     for row in area_rows:
-        pr = [row["area"], 0.0, 0.0, 0.0, 0.0, 0.0, row["tri_start"], row["tri_count"]]
+        pr = [row["area"], 1.0 if row["is_sphere"] else 0.0,
+              row["center"][0], row["center"][1], row["center"][2], row["radius"],
+              row["tri_start"], row["tri_count"]]
         add(L_AREA, Transform(), row["L"], pr, row["L"] * np.pi * row["area"],
             row["nsamples"])
 

@@ -346,3 +346,41 @@ def test_render_on_card_matches_cpu(cuda, tmp_path):
     assert abs(gpu.mean() - cpu.mean()) <= 5e-3 * cpu.mean()
     rel = (np.abs(gpu - cpu) / np.maximum(np.abs(cpu), 1e-6)).max(-1)
     assert (rel <= 1e-3).mean() >= 0.99
+
+
+def test_quadric_scene_on_card_matches_cpu(cuda, tmp_path):
+    """The meshdl golden (two floor triangles through K1, three quadrics
+    folded in after it, a tessellated disk light, directlighting) with a
+    homogeneous volume added (single scattering), on the card and on the
+    CPU, within the whole-slice limits."""
+    import os
+
+    from pbrt_tpu_torch.ops import intersect_cuda
+    from pbrt_tpu_torch.scene import api, parser
+
+    with open(os.path.join(os.path.dirname(__file__), "goldens", "meshdl.pbrt")) as f:
+        text = f.read()
+    text = text.replace('"integer pixelsamples" [16]', '"integer pixelsamples" [4]')
+    text = text.replace("WorldBegin", 'VolumeIntegrator "single" "float stepsize" [0.5]\n'
+                        "WorldBegin\n"
+                        'Volume "homogeneous" "point p0" [-3 0 -3] "point p1" [3 3 3] '
+                        '"rgb sigma_a" [.05 .05 .05] "rgb sigma_s" [.1 .1 .1]', 1)
+    path = tmp_path / "scene.pbrt"
+    path.write_text(text)
+
+    def render(device):
+        api.pbrt_init({"quiet": True, "write": False, "device": device})
+        try:
+            parser.parse_file(str(path))
+            return np.asarray(api._state.output)
+        finally:
+            api._state.__init__()
+
+    before = intersect_cuda.launches
+    gpu = render("cuda")
+    assert intersect_cuda.launches > before
+    cpu = render("cpu")
+    assert np.isfinite(gpu).all() and gpu.mean() > 0
+    assert abs(gpu.mean() - cpu.mean()) <= 5e-3 * cpu.mean()
+    rel = (np.abs(gpu - cpu) / np.maximum(np.abs(cpu), 1e-6)).max(-1)
+    assert (rel <= 1e-3).mean() >= 0.99

@@ -144,16 +144,18 @@ def test_bridge_round_trip(compiled):
 
 
 NOT_PORTED = {
-    "sphere": 'Shape "sphere"',
+    "heightfield": 'Shape "heightfield" "integer nu" [2] "integer nv" [2] '
+                   '"float Pz" [0 0 0 0]',
     "spot light": 'LightSource "spot"',
     "metal": 'Material "metal"\n' + mesh(QUAD, QUAD_IDX),
     "texture": 'Texture "c" "color" "checkerboard"',
-    "volume": 'Volume "homogeneous"',
+    "loopsubdiv": 'Shape "loopsubdiv" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
+    "moving sphere": 'AttributeBegin\nActiveTransform EndTime\nTranslate 1 0 0\n'
+                     'ActiveTransform All\nShape "sphere"\nAttributeEnd',
 }
 NOT_PORTED_OPTIONS = {
     "orthographic": 'Camera "orthographic"',
     "halton": 'Sampler "halton"',
-    "directlighting": 'SurfaceIntegrator "directlighting"',
     "photonvolume": 'VolumeIntegrator "photonvolume"',
     "metropolis": 'Renderer "metropolis"',
 }
@@ -175,6 +177,30 @@ def test_unported_features_fail_clearly(tmp_path, what):
             t_parser.parse_file(str(path))
     finally:
         t_api._state.__init__()
+
+
+def test_unknown_integrators_warn_and_fall_back(tmp_path, capsys):
+    """Integrator names neither package knows warn and render as the
+    JAX package does: "path" for the surface, "single" for a volume."""
+    volume = ('Volume "homogeneous" "point p0" [-2 -1 -2] "point p1" [2 2 2] '
+              '"rgb sigma_a" [.1 .1 .1] "rgb sigma_s" [.2 .2 .2]\n')
+    images = {}
+    for surf, vol in (("path", "single"), ("nonesuch", "single"), ("path", "nonesuch")):
+        text = scene_text(res=8, spp=1, depth=2).replace('"path"', f'"{surf}"', 1)
+        text = text.replace("WorldBegin\n", f'VolumeIntegrator "{vol}"\nWorldBegin\n' + volume)
+        path = tmp_path / f"{surf}_{vol}.pbrt"
+        path.write_text(text)
+        t_api.pbrt_init({"write": False, "device": "cpu", "tile_samples": 64})
+        try:
+            t_parser.parse_file(str(path))
+            images[surf, vol] = np.asarray(t_api._state.output)
+        finally:
+            t_api._state.__init__()
+        err = capsys.readouterr().err
+        assert ("nonesuch" in err) == ("nonesuch" in (surf, vol))
+    assert images["path", "single"].mean() > 0
+    for key in (("nonesuch", "single"), ("path", "nonesuch")):
+        np.testing.assert_array_equal(images[key], images["path", "single"])
 
 
 def _render(api, parser, path):
