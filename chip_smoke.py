@@ -66,9 +66,18 @@ GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 # the reference-binary goldens the port renders, with the bounds of
 # tests/test_reference_golden.py: (scene, mean-level rtol, mean abs diff / level)
 GOLDENS = (("matte", 0.02, 0.03), ("meshdl", 0.03, 0.08), ("mesh", 0.05, 0.15),
-           ("smoke", 0.05, 0.10), ("vol", 0.05, 0.08))
+           ("smoke", 0.05, 0.10), ("vol", 0.05, 0.08), ("disp", 0.08, 0.30))
 BENCHVOL_RES = 1024
 BENCHVOL_CHECK_RES = 16   # benchvol's card-vs-CPU check
+RAINBOWC_BOUNDS = (0.05, 0.15)    # rainbowc's reference-binary bounds, printed as information
+RAINBOWC_CROP = (0.375, 0.625, 0.375, 0.625)   # 24 x 24 of 96 x 96
+S_BINS = 30                # spectral bins (pbrt_tpu_torch/core/spectrum.py)
+SHOOT_B = 32768            # photon paths per shooting batch at large quotas
+KNN_P, KNN_Q, KNN_K = 1_000_000, 65536, 500   # [12]'s kNN leg
+MARCH_SIDE, MARCH_STEPS = 128, 64              # [12]'s march leg
+# benchphoton at 512^2 took 188.6 s (render 178.6 s) on an H100 80GB HBM3 at 700 W,
+# over the 180 s its phase may take: cut to 256^2 (PERF.md)
+BENCHPHOTON_RES = 256
 
 
 def log(msg):
@@ -148,6 +157,63 @@ def benchvol_scene_text(res):
             'Material "matte" "rgb Kd" [.45 .35 .65]\n' + mesh(P, idx)
             + 'Material "matte" "rgb Kd" [.55 .55 .5]\n' + mesh(FLOOR, FLOOR_IDX)
             + "WorldEnd\n")
+
+
+# benchphoton's light and medium: (spot I, point light height, sigma_a),
+# raised from (400, 1.9, 0.05) so that every quota fills inside the
+# shooter's batch cap (PERF.md, Cells: benchphoton)
+BENCHPHOTON_LIGHTS = (2000, 0.7, 0.15)
+
+
+def benchphoton_scene_text(res, lights=BENCHPHOTON_LIGHTS):
+    """The benchvol geometry (135,202 triangles and the glass sphere) lit
+    by a spot on the glass sphere and a point light inside the medium,
+    under photonmap (final gather) and photonvolume (1M volume photons,
+    128 march steps); `lights` is (spot I, point light height, sigma_a)."""
+    spot_i, point_y, sigma_a = lights
+    P, idx = uv_sphere(260, 260, 1.0, (0.0, 0.4, 0.0))
+    return (f'Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]\n'
+            'Sampler "lowdiscrepancy" "integer pixelsamples" [1]\n'
+            'LookAt 0 1.2 -4  0 0.4 0  0 1 0\nCamera "perspective" "float fov" [45]\n'
+            'SurfaceIntegrator "photonmap" "integer causticphotons" [200000]\n'
+            '    "integer indirectphotons" [200000] "integer nused" [60] "float maxdist" [0.2]\n'
+            '    "bool finalgather" ["true"] "integer finalgathersamples" [16]\n'
+            'VolumeIntegrator "photonvolume" "integer volumephotons" [1000000]\n'
+            '    "integer nused" [100] "float maxdist" [0.4] "float stepsize" [0.05]\n'
+            'WorldBegin\n'
+            'LightSource "spot" "point from" [1.6 3 0.2] "point to" [1.6 0 0.2]\n'
+            f'    "float coneangle" [10] "float conedeltaangle" [2] "rgb I" [{spot_i} {spot_i} {spot_i}]\n'
+            f'LightSource "point" "point from" [0 {point_y} -1.5] "rgb I" [20 20 20]\n'
+            'Volume "homogeneous" "point p0" [-2.5 -0.6 -2.5] "point p1" [2.5 2.0 2.5]\n'
+            f'    "rgb sigma_a" [{sigma_a} {sigma_a} {sigma_a}] "rgb sigma_s" [0.15 0.15 0.15] "float g" [0.3]\n'
+            'AttributeBegin\nMaterial "glass" "float index" [1.52] "float Vn" [64.17]\n'
+            'Translate 1.6 0 0.2\nShape "sphere" "float radius" [0.5]\nAttributeEnd\n'
+            'Material "matte" "rgb Kd" [.45 .35 .65]\n' + mesh(P, idx)
+            + 'Material "matte" "rgb Kd" [.55 .55 .5]\n' + mesh(FLOOR, FLOOR_IDX)
+            + "WorldEnd\n")
+
+
+# bench.py's photon legs: a scattering cube and a point light, no surfaces
+PHOTON_LEGS_SCENE = """LookAt 0 0.5 -4  0 0 0  0 1 0
+Camera "perspective" "float fov" [45]
+WorldBegin
+LightSource "point" "point from" [0 2.5 0] "rgb I" [30 30 30]
+Volume "homogeneous" "point p0" [-1.5 -1.2 -1.5] "point p1" [1.5 1.8 1.5]
+    "rgb sigma_a" [0.05 0.05 0.05] "rgb sigma_s" [0.9 0.9 0.9]
+WorldEnd
+"""
+
+
+def rainbowc_const_text(crop=None):
+    """tests/goldens/rainbowc.pbrt with the walls' imagemap x scale
+    texture replaced by its value where the image is white, 0.02."""
+    with open(os.path.join(GOLDEN_DIR, "rainbowc.pbrt")) as f:
+        s = f.read()
+    s = "\n".join(ln for ln in s.splitlines() if not ln.startswith("Texture ")) + "\n"
+    s = s.replace('Material "matte" "texture Kd" "sgrid"', 'Material "matte" "rgb Kd" [.02 .02 .02]')
+    if crop is not None:
+        s = re.sub(r'(Film "image"[^\n]*)', r'\1 "float cropwindow" [%g %g %g %g]' % crop, s)
+    return s
 
 
 def small_scene_text(res, spp):
@@ -441,12 +507,12 @@ class LaunchTimer:
         self.fn, self.work = fn, work
         self.events, self.works = [], []
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         import torch
 
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        out = self.fn(*args)
+        out = self.fn(*args, **kw)
         b.record()
         self.events.append((a, b))
         if self.work is not None:
@@ -860,6 +926,358 @@ def phase_benchvol(tmp):
             "cpu_seconds": cpu_sec, "cpu_mean_rel": mean_rel, "cpu_within_1e-3": within}
 
 
+def phase_rainbowc(tmp):
+    """[11]: rainbowc_const through the CLI on the card at its authored
+    size (photonmap with final gather, photonvolume in a rainbow region
+    under a distant light), its mean and mean abs diff against the
+    reference binary's rainbowc image printed as information; every K1
+    launch held bit for bit against the plain twin in a second render;
+    then a 24^2 crop on the card and on the CPU. -> dict."""
+    from pbrt_tpu_torch.io.image import read_image
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+
+    text = rainbowc_const_text()
+    intersect_cuda.launches = 0
+    bvh_cuda.launches = 0
+    with NoPlain():
+        img, sec = render(text, "rainbowc_const", tmp)
+    k1_launches, k2_launches = intersect_cuda.launches, bvh_cuda.launches
+    ref = np.asarray(read_image(os.path.join(GOLDEN_DIR, "ref_rainbowc.pfm")))
+    level = max(float(ref.mean()), 1e-6)
+    mean_ratio = float(img.mean()) / level
+    mad_ratio = float(np.abs(img - ref).mean()) / level
+    log(f"  {img.shape[1]}x{img.shape[0]}: {sec:.2f} s, K1 launches {k1_launches}, K2 launches "
+        f"{k2_launches}; vs the reference binary's rainbowc (textured walls; information "
+        f"only): mean level ratio {mean_ratio:.4f}, mean abs diff / level {mad_ratio:.4f} "
+        f"(rainbowc's bounds {RAINBOWC_BOUNDS})")
+    if k1_launches <= 0:
+        raise RuntimeError("rainbowc_const did not launch K1")
+    rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
+    with Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
+        render(text, "rainbowc_const_checked", tmp)
+    r = rec.summary()
+    r.pop("live_share_per_launch")
+    if r["launches"] != k1_launches:
+        raise RuntimeError(f"rainbowc_const: K1 launches differ between renders: "
+                           f"{r['launches']} vs {k1_launches}")
+    log(f"  every one of {r['launches']} K1 launches bit-equal to the plain twin; kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, live share {r['live_share']:.4f}, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    crop = rainbowc_const_text(crop=RAINBOWC_CROP)
+    tile = ("--tile-samples", str(24 * 24 * 2))   # one tile of exactly the crop's samples
+    gpu, _ = render(crop, "rainbowc_crop_gpu", tmp, extra=tile)
+    cpu, cpu_sec = render(crop, "rainbowc_crop_cpu", tmp, extra=(*tile, "--device", "cpu"))
+    mean_rel, within = agree(gpu, cpu, f"rainbowc_const 24x24 crop ({cpu_sec:.2f} s on the CPU)")
+    return {"seconds": sec, "k1_launches": k1_launches, "k2_launches": k2_launches,
+            "mean_ratio": mean_ratio, "mad_ratio": mad_ratio, "k1": r, "cpu_seconds": cpu_sec,
+            "cpu_mean_rel": mean_rel, "cpu_within_1e-3": within}
+
+
+def compile_text(scene_text, out_name, tmp, device):
+    """Parse a scene and compile it on `device` without rendering ->
+    (CompiledScene, RenderOptions)."""
+    from pbrt_tpu_torch.scene import api, parser
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    path = os.path.join(tmp, out_name + ".pbrt")
+    with open(path, "w") as f:
+        f.write(scene_text)
+
+    class Capture:
+        ro = None
+
+        def __getattr__(self, name):
+            return getattr(api, name)
+
+        def pbrt_world_end(self):
+            Capture.ro = api.get_state().render_options
+            api.pbrt_world_end(render=False)
+
+    api.pbrt_init({"quiet": True, "device": str(device)})
+    try:
+        parser.parse_file(path, api=Capture())
+    finally:
+        api._state.__init__()
+    return compile_scene(Capture.ro, device), Capture.ro
+
+
+def host_s(fn):
+    """Host seconds of fn() up to a device synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def knn_work(pm, q, k, max_d2, found=None):
+    """The data-dependent work of a kNN lookup over these queries: (valid
+    candidates, distinct candidate photons, distinct selected photons,
+    photons found). Candidates: the photons of each query's in-grid
+    neighbour cells, at most `cap` a cell; selected: the top-k set."""
+    import torch
+    from pbrt_tpu_torch.photon import map as pmap
+
+    cap = pmap.default_cap(k)
+    cid, inb = pmap._neighbour_cells(pm, q)
+    cnt = torch.clamp(pm.cell_start[cid + 1] - pm.cell_start[cid], max=cap)
+    valid = int(torch.where(inb, cnt, 0).sum())
+    cells = torch.unique(cid[inb])
+    distinct = int(torch.clamp(pm.cell_start[cells + 1] - pm.cell_start[cells], max=cap).sum())
+    seen = torch.zeros(pm.count, dtype=torch.bool, device=q.device)
+    n_found = 0
+    live = pmap.live_queries(pm, q)
+    block = pmap.query_block(k, cap, q.device)
+    for s in range(0, live.shape[0], block):
+        tk = pmap.topk_phase(pm, q[live[s:s + block]], k, max_d2, cap)
+        seen[tk.gi[tk.valid]] = True
+        n_found += int(tk.n_found.sum())
+    return valid, distinct, int(seen.sum()), n_found
+
+
+def knn_bound(work, Q, n_out_spectra=1):
+    """(flops, bytes) of a kNN density estimate: 8 flops per candidate
+    distance, 2 S per found photon's weighted spectrum; candidate
+    positions (12 B) and selected photons' spectrum, direction and
+    occupancy (4 S + 16 B) read once, the queries (12 B) and the result
+    (4 S + 16 B per query and output spectrum) once."""
+    valid, distinct, selected, found = work
+    flops = valid * 8 + found * 2 * S_BINS * n_out_spectra
+    nbytes = distinct * 12 + selected * (4 * S_BINS + 16) + Q * (12 + (4 * S_BINS + 16)
+                                                                 * n_out_spectra)
+    return flops, nbytes
+
+
+def phase_photon_legs(tmp, device):
+    """[12]: bench.py's photon legs on a scattering cube (sigma_a .05,
+    sigma_s .9) and a point light: shooting (B = 32,768, depth 5,
+    Woodcock), kNN at nused 500 on a 1M-photon map for 65,536 queries,
+    the build of that map, and the photonvolume march (128^2 rays x 64
+    steps) on the shot volume photons; each with its bound. -> dict."""
+    import torch
+    from pbrt_tpu_torch.core.geometry import Ray
+    from pbrt_tpu_torch.integrators import photonvolume as pv
+    from pbrt_tpu_torch.photon import map as pmap
+    from pbrt_tpu_torch.photon import shooter
+
+    S = S_BINS
+    scene, _ = compile_text(PHOTON_LEGS_SCENE, "photon_legs", tmp, device)
+    B, D, iters = SHOOT_B, 5, 4
+    batch = shooter.shoot_batch_fn(scene, D, True)
+    lane = torch.arange(B, device=device)
+
+    def shoot(i):
+        r = batch(lane, torch.full((B,), i * B, dtype=torch.int64, device=device), 0)
+        code = torch.where(r["alpha"].sum(-1) > 0, r["cls"], 0).reshape(-1)
+        return r, code, torch.bincount(code, minlength=5).tolist()   # the shooter's one fetch
+
+    shoot(iters)   # warm-up, at other counters
+    recs, shoot_s = host_s(lambda: [shoot(i) for i in range(iters)])
+    shoot_s /= iters
+    stored = sum(sum(c[1:]) for _, _, c in recs) / iters
+    # bound: the records written once; 18 S flops per path segment (4
+    # Woodcock trials x (sigma_t + its Y weight) 3 S, albedo 4 S, the
+    # phase weight and the record 2 S)
+    rec_bytes = sum(v.numel() * v.element_size() for v in recs[0][0].values())
+    s_bound = bound(B * 2 * D * 18 * S, rec_bytes)
+    log(f"  shooting: {shoot_s * 1e3:.1f} ms per batch of {B} paths (depth {D}, host clock, "
+        f"one fetch each), {B / shoot_s:.0f} paths/s, {stored / shoot_s:.0f} stored photons/s "
+        f"({stored:.0f} a batch); bound {s_bound[0]:.4f} ms ({s_bound[1]}: {rec_bytes} bytes of "
+        f"records), {s_bound[0] / (shoot_s * 1e3):.2%} of bound")
+
+    rng = np.random.RandomState(0)
+    ppos = rng.normal(0.0, 0.6, (KNN_P, 3)).astype(np.float32)
+    palpha = (rng.rand(KNN_P, S) * 1e-6).astype(np.float32)
+    pwi = rng.normal(size=(KNN_P, 3)).astype(np.float32)
+    pwi /= np.linalg.norm(pwi, axis=-1, keepdims=True)
+    pmap.build_photon_map(ppos[:1000], palpha[:1000], pwi[:1000], 0.05, 500, device)  # warm-up
+    pm, build_s = host_s(lambda: pmap.build_photon_map(ppos, palpha, pwi, 0.05, target_k=500,
+                                                       device=device))
+    b_bound = bound(0, KNN_P * 2 * (12 + 4 * S + 12) + KNN_P * 4 + (len(pm.cell_start)) * 8)
+    log(f"  {KNN_P}-photon map build (host structure + upload + sort): {build_s:.3f} s; grid "
+        f"{pm.dims}, bound {b_bound[0]:.4f} ms ({b_bound[1]})")
+
+    q = torch.as_tensor(rng.normal(0.0, 0.5, (KNN_Q, 3)).astype(np.float32), device=device)
+
+    def ones(wx, wy, wz, d2, valid, r2):
+        return torch.ones_like(d2)
+
+    knn_ms = cuda_ms(lambda: pmap.knn_weighted_flux(pm, q, KNN_K, 0.16, ones), iters=3)
+    cap = pmap.default_cap(KNN_K)
+    live = pmap.live_queries(pm, q)
+    blk = pmap.query_block(KNN_K, cap, device)
+    keys = []
+    for s in range(0, live.shape[0], blk):
+        qb = q[live[s:s + blk]]
+        idx, ok = pmap._gather_candidates(pm, qb, cap)
+        d2 = torch.where(ok, pmap._sq_dist(pm.pos[idx], qb), float("inf"))
+        keys.append((d2.view(torch.int32).to(torch.int64) << 32)
+                    | torch.arange(d2.shape[1], device=device))
+    topk_ms = cuda_ms(lambda: [torch.topk(k_, KNN_K, dim=1, largest=False, sorted=True)
+                               for k_ in keys], iters=3)
+    del keys
+    work = knn_work(pm, q, KNN_K, 0.16)
+    k_bound = bound(*knn_bound(work, KNN_Q))
+    log(f"  kNN, nused {KNN_K}, {KNN_P} photons, Q = {KNN_Q}: {knn_ms:.2f} ms "
+        f"({KNN_Q / knn_ms * 1e3:.0f} lookups/s; CUDA events), of which torch.topk over the "
+        f"[{blk}, {27 * cap}] key blocks {topk_ms:.2f} ms; {work[0]} candidates "
+        f"({work[1]} distinct), {work[3]} found ({work[2]} distinct); bound "
+        f"{k_bound[0]:.4f} ms ({k_bound[1]}), {k_bound[0] / knn_ms:.2%} of bound")
+    del pm
+
+    vm = torch.cat([c == shooter.C_VOLUME for _, c, _ in recs])
+    cat = {k: torch.cat([r[k].reshape(-1, r[k].shape[-1]) for r, _, _ in recs])[vm]
+           for k in ("pos", "alpha", "wi")}
+    vol_map = pmap.build_photon_map(cat["pos"], cat["alpha"] / (iters * B), cat["wi"], 0.35,
+                                    target_k=100, device=device)
+    ctx = shooter.PhotonCtx(None, None, vol_map, None, None, 1, 1, iters * B, n_used=50,
+                            max_dist2=0.01, vol_n_used=100, vol_max_dist2=0.35 * 0.35,
+                            final_gather=False, gather_samples=1, cos_gather_angle=0.98,
+                            max_specular_depth=5, max_photon_depth=5)
+    R = MARCH_SIDE * MARCH_SIDE
+    xs = np.linspace(-0.4, 0.4, MARCH_SIDE, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs, indexing="xy")
+    d = np.stack([gx.ravel(), gy.ravel(), np.ones(R, np.float32)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.tile(np.array([[0.0, 0.5, -4.0]], np.float32), (R, 1))
+    zeros = torch.zeros(R, device=device)
+    inf = torch.full((R,), float("inf"), device=device)
+    ray = Ray(torch.as_tensor(o, device=device), torch.as_tensor(d, device=device), zeros, inf,
+              zeros)
+    pix = torch.arange(R, device=device)
+
+    def march():
+        return pv.li_photonvolume(scene, ctx, ray, inf, pix, torch.zeros_like(pix), MARCH_STEPS,
+                                  seed=0)
+
+    # the march's kNN work, counted in one untimed run
+    works = []
+    real = pmap.knn_weighted_flux
+
+    def counting(pm_, q_, k, max_d2, *a, mask=None, **kw):
+        live_q = q_[mask] if mask is not None else q_
+        works.append(knn_work(pm_, live_q, k, max_d2) + (live_q.shape[0],))
+        return real(pm_, q_, k, max_d2, *a, mask=mask, **kw)
+
+    with Patched((pmap, "knn_weighted_flux", counting)):
+        vr = march()
+    if not (bool(torch.isfinite(vr.L).all()) and float(vr.L.sum()) > 0):
+        raise RuntimeError("[12] march: radiance not finite or black")
+    march_ms = cuda_ms(march, iters=2)
+    m_flops = m_bytes = 0
+    for w in works:
+        f_, b_ = knn_bound(w[:4], w[4])
+        m_flops, m_bytes = m_flops + f_, m_bytes + b_
+    # per sample besides the kNN: the step's sigma and Tr (3 S), the shadow
+    # transmittance's max(4, steps / 4) sub-steps (3 S each), source and
+    # update (6 S); the result L and Tr written once
+    sub = max(4, MARCH_STEPS // 4)
+    m_flops += R * MARCH_STEPS * (3 + 3 * sub + 6) * S
+    m_bytes += R * (2 * 4 * S + 24)
+    m_bound = bound(m_flops, m_bytes)
+    log(f"  march, {MARCH_SIDE}^2 rays x {MARCH_STEPS} steps, volume map {vol_map.count} "
+        f"photons: {march_ms:.2f} ms ({R * MARCH_STEPS / march_ms * 1e3:.0f} samples/s; CUDA "
+        f"events); bound {m_bound[0]:.4f} ms ({m_bound[1]}), {m_bound[0] / march_ms:.2%} of "
+        f"bound")
+    return {"shoot_ms_per_batch": shoot_s * 1e3, "paths_per_s": B / shoot_s,
+            "stored_photons_per_s": stored / shoot_s, "shoot_bound_ms": s_bound[0],
+            "shoot_bound_by": s_bound[1], "map_build_1m_s": build_s,
+            "map_build_bound_ms": b_bound[0], "knn_ms": knn_ms, "knn_topk_ms": topk_ms,
+            "knn_lookups_per_s": KNN_Q / knn_ms * 1e3, "knn_work": list(work),
+            "knn_bound_ms": k_bound[0], "knn_bound_by": k_bound[1], "march_ms": march_ms,
+            "march_samples_per_s": R * MARCH_STEPS / march_ms * 1e3,
+            "march_bound_ms": m_bound[0], "march_bound_by": m_bound[1],
+            "vol_map_photons": vol_map.count}
+
+
+def phase_benchphoton(tmp, device):
+    """[13]: benchphoton at full size: every K2 launch of one shooting
+    batch held bit for bit against the plain twin; then the render
+    through the CLI on the card with CUDA events around every kNN lookup,
+    the final gather, the march and every K2 launch. -> dict."""
+    import torch
+    from pbrt_tpu_torch.integrators import photonmap as pm_int
+    from pbrt_tpu_torch.integrators import photonvolume as pv_int
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+    from pbrt_tpu_torch.photon import map as pmap
+    from pbrt_tpu_torch.photon import shooter
+
+    res = BENCHPHOTON_RES
+    text = benchphoton_scene_text(res)
+    scene, _ = compile_text(text, "benchphoton_compile", tmp, device)
+    rec = SweepRecorder(bvh_cuda)
+    with Patched((bvh_cuda, "wide_sweep", rec)):
+        shooter.shoot_batch_fn(scene, 5, True)(torch.arange(SHOOT_B, device=device),
+                                               torch.zeros(SHOOT_B, dtype=torch.int64,
+                                                           device=device), 0)
+    m = rec.summary()
+    if m["t_bits_differ"]:
+        raise RuntimeError(f"benchphoton: K2 t bits differ from the plain twin on "
+                           f"{m['t_bits_differ']} rays in the first shooting batch")
+    log(f"  first shooting batch ({SHOOT_B} paths): {m['waves']} K2 waves, {m['pairs']} pairs, "
+        f"every one prim identical and t bit-equal to the plain twin; kernel {m['ms']:.3f} ms, "
+        f"plain {m['plain_ms']:.3f} ms, bound {m['bound_ms']:.3f} ms ({m['bound_by']})")
+    del scene
+    torch.cuda.empty_cache()
+
+    ctxs = []
+    real_build = shooter.build_photon_maps
+
+    def build(*a, **kw):
+        ctxs.append(real_build(*a, **kw))
+        return ctxs[-1]
+
+    spans = {"knn_weighted_flux": LaunchTimer(pmap.knn_weighted_flux),
+             "knn_dirs": LaunchTimer(pmap.knn_dirs),
+             "radiance_lookup": LaunchTimer(pmap.radiance_lookup),
+             "final_gather": LaunchTimer(pm_int._final_gather),
+             "march": LaunchTimer(pv_int.li_photonvolume),
+             "k2": LaunchTimer(bvh_cuda.wide_sweep_cuda, work=k2_work)}
+    kinds = AnyHitCounter(bvh_cuda)
+    intersect_cuda.launches = 0
+    bvh_cuda.launches = 0
+    with NoPlain(), Patched((shooter, "build_photon_maps", build),
+                            (pmap, "knn_weighted_flux", spans["knn_weighted_flux"]),
+                            (pmap, "knn_dirs", spans["knn_dirs"]),
+                            (pmap, "radiance_lookup", spans["radiance_lookup"]),
+                            (pm_int, "_final_gather", spans["final_gather"]),
+                            (pv_int, "li_photonvolume", spans["march"]),
+                            (bvh_cuda, "wide_sweep", spans["k2"]),
+                            (bvh_cuda, "wide_t_pass", kinds)):
+        img, sec = render(text, "benchphoton", tmp)
+    k2_launches, k1_launches = bvh_cuda.launches, intersect_cuda.launches
+    st = ctxs[0].stats
+    short = {n: c for n, c in st["counts"].items() if c[0] < c[1]}
+    log(f"  {res}x{res}, 1 spp: {sec:.2f} s end to end (parse + compile + BVH build + shooting "
+        f"+ map builds + render, CUDA events in place), image mean {img.mean():.5f}; K2 launches "
+        f"{k2_launches} ({kinds.any_hit} any-hit, {kinds.closest} closest-hit), K1 launches "
+        f"{k1_launches}")
+    log(f"  shooting: {st['shoot_seconds']:.2f} s, {st['batches']} batches of {st['batch']} "
+        f"({st['shots']} paths), {st['syncs']} shooter fetches; map builds and radiance "
+        f"precompute {st['build_seconds']:.2f} s; stored / quota: "
+        + ", ".join(f"{n} {c[0]} / {c[1]}" for n, c in st["counts"].items())
+        + f"; radiance photons {st['radiance']}; aborted {st['aborted']}")
+    if st["aborted"] or short:
+        raise RuntimeError(f"benchphoton: quotas not filled: {short or 'hopeless abort'}")
+    if k2_launches <= 0:
+        raise RuntimeError("benchphoton render did not launch K2")
+    work = spans["k2"].work_rows()
+    per_launch = [k2_launch_bound(*w) for w in work]
+    out = {f"{n}_ms": t.total_ms() for n, t in spans.items()}
+    out.update({f"{n}_calls": len(t.events) for n, t in spans.items()})
+    out.update({"k2_pairs": sum(w[0] for w in work),
+                "k2_bound_ms": sum(max(f, b) for f, b in per_launch)})
+    log("  event spans (nested: the march and the final gather hold kNN and K2 spans; kNN "
+        "spans include the radiance precompute's): "
+        + ", ".join(f"{n} {out[n + '_ms']:.1f} ms over {out[n + '_calls']} calls" for n in spans)
+        + f"; K2 pairs {out['k2_pairs']}, bound {out['k2_bound_ms']:.3f} ms")
+    return {"res": res, "seconds": sec, "k2_launches": k2_launches,
+            "k2_any_hit_launches": kinds.any_hit, "k2_closest_launches": kinds.closest,
+            "k1_launches": k1_launches, "first_batch_k2": m, "stats": st, "spans": out}
+
+
 def render(scene_text, out_name, tmp, extra=()):
     """Write the scene and render it through the CLI entry point."""
     from pbrt_tpu_torch import main as cli
@@ -880,6 +1298,29 @@ def render(scene_text, out_name, tmp, extra=()):
     return img, seconds
 
 
+def run_photon_phases(tmp, device):
+    """[11]-[13], the photon scenes and legs -> dict."""
+    log("[11] rainbowc_const (photonmap + final gather, photonvolume in a rainbow region, "
+        "distant light)")
+    rainbowc = phase_rainbowc(tmp)
+    log("[12] photon legs (bench.py): scattering cube + point light")
+    legs = phase_photon_legs(tmp, device)
+    log(f"[13] benchphoton (bench geometry + glass sphere, spot + point light in a "
+        f"homogeneous box; photonmap with final gather, photonvolume, 1M volume photons)")
+    t0 = time.perf_counter()
+    benchphoton = phase_benchphoton(tmp, device)
+    log(f"  [13] took {time.perf_counter() - t0:.1f} s")
+    return {"rainbowc_const": rainbowc, "photon_legs": legs, "benchphoton": benchphoton}
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -893,10 +1334,7 @@ def main():
     sys.path.insert(0, REPO)
     device = torch.device("cuda", 0)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    card = card_line()
     log(f"[1] device: {card} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
@@ -1030,16 +1468,21 @@ def main():
         log(f"[10] benchvol (bench geometry + glass sphere + disk light + homogeneous "
             f"volume; directlighting maxdepth 5, single scattering, 16 march steps)")
         benchvol = phase_benchvol(tmp)
+        photon = run_photon_phases(tmp, device)
 
-    # K1: every launch of the small render and of the goldens (set3:
-    # 65,536 rays x 4,096 triangles); K2: the three 1024^2 ray sets in the
-    # render's 65,536-ray traversals (sums over every wave; by_set has each
-    # set at both shapes), launches of the bench and benchvol renders. No
-    # single PyTorch call computes either.
+    # K1: every launch of the small render, the goldens and rainbowc_const
+    # (set3: 65,536 rays x 4,096 triangles); K2: the three 1024^2 ray sets
+    # in the render's 65,536-ray traversals (sums over every wave; by_set
+    # has each set at both shapes), launches of the bench, benchvol and
+    # benchphoton renders. No single PyTorch call computes either.
     k1["goldens"] = goldens
-    k1["launches"] += sum(g["k1_launches"] for g in goldens.values())
+    k1["rainbowc_const"] = photon["rainbowc_const"]
+    k1["launches"] += (sum(g["k1_launches"] for g in goldens.values())
+                       + photon["rainbowc_const"]["k1_launches"])
     k2["benchvol"] = benchvol
-    k2["launches"] += benchvol["k2_launches"]
+    k2["benchphoton"] = photon["benchphoton"]
+    k2["launches"] += benchvol["k2_launches"] + photon["benchphoton"]["k2_launches"]
+    log(f"  photon legs: {json.dumps(photon['photon_legs'])}")
     log(f"  all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": "k1_sweep_kernel", "route": "cuda",

@@ -8,6 +8,10 @@ lights, light CDF, wide BVH and volume regions, and to compare their
 compilers array for array. Keys are "<part>.<field>" with the field
 names of pbrt_tpu's SceneGeom (with its packs), LightsT, Distribution1D,
 WideBVH and VolumeT.
+
+A photon context (the maps and settings of pbrt_tpu's PhotonCtx) comes
+across by `photon_ctx_from_arrays`, with the JAX package's map layout
+([P, 4] packed rows, [S, P] spectra) turned into this package's.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from pbrt_tpu_torch.accel.intersect import SceneGeom
 from pbrt_tpu_torch.accel.wide_bvh import WideBVH
 from pbrt_tpu_torch.core.sampling import Distribution1D
 from pbrt_tpu_torch.lights.lighting import LightsT
+from pbrt_tpu_torch.photon.map import PhotonMap, RadianceMap
+from pbrt_tpu_torch.photon.shooter import PhotonCtx
 from pbrt_tpu_torch.volumes.registry import VolumeT
 
 GEOM_FIELDS = {
@@ -92,3 +98,44 @@ def scene_to_arrays(scene) -> dict:
     out.update(to_arrays("wide", scene.accel.wide))
     out.update(to_arrays("volume", scene.volume))
     return out
+
+
+PHOTON_MAPS = ("caustic", "indirect", "volume", "direct", "radiance")
+PHOTON_SETTINGS = ("n_caustic_paths", "n_indirect_paths", "n_volume_paths", "n_used",
+                   "max_dist2", "vol_n_used", "vol_max_dist2", "final_gather",
+                   "gather_samples", "cos_gather_angle", "max_specular_depth",
+                   "max_photon_depth")
+
+
+def photon_map_from_arrays(arrays: dict, name: str, device):
+    """One map from arrays["<name>.<field>"], with the field names of
+    pbrt_tpu's PhotonMap (pxyz, alpha_t, wixyz, cell_start, grid_lo,
+    inv_cell, dims, count, occ) or RadianceMap (pxyz, lo_t, nxyz, ...);
+    None if absent."""
+    if f"{name}.pxyz" not in arrays:
+        return None
+
+    def t(field, dtype=torch.float32):
+        return torch.tensor(np.asarray(arrays[f"{name}.{field}"]), dtype=dtype, device=device)
+
+    def rows(field):   # [P, 4] packed rows -> [P, 3]
+        return t(field)[:, :3].contiguous()
+
+    spectra = "lo_t" if name == "radiance" else "alpha_t"
+    common = dict(pos=rows("pxyz"), cell_start=t("cell_start", torch.int64),
+                  grid_lo=t("grid_lo"), inv_cell=t("inv_cell"),
+                  dims=tuple(int(x) for x in np.asarray(arrays[f"{name}.dims"])),
+                  count=int(arrays[f"{name}.count"]))
+    payload = t(spectra).T.contiguous()   # [S, P] -> [P, S]
+    if name == "radiance":
+        return RadianceMap(lo=payload, n=rows("nxyz"), **common)
+    return PhotonMap(alpha=payload, wi=rows("wixyz"), occ=t("occ"), **common)
+
+
+def photon_ctx_from_arrays(arrays: dict, device) -> PhotonCtx:
+    """A PhotonCtx from the maps ("<map>.<field>", see
+    photon_map_from_arrays) and settings ("ctx.<setting>") of pbrt_tpu's
+    PhotonCtx."""
+    maps = [photon_map_from_arrays(arrays, m, device) for m in PHOTON_MAPS]
+    settings = {k: np.asarray(arrays[f"ctx.{k}"]).item() for k in PHOTON_SETTINGS}
+    return PhotonCtx(*maps, **settings)

@@ -125,6 +125,10 @@ def power_heuristic(nf, f_pdf, ng, g_pdf):
     return (f * f) / torch.clamp(f * f + g * g, min=1e-30)
 
 
+def phase_mie_hazy(cos_t):
+    return (0.5 + 4.5 * ((1.0 + cos_t) / 2.0) ** 8) * INV_FOURPI
+
+
 def phase_hg(cos_t, g):
     """Henyey-Greenstein phase function (reference core/volume.cpp)."""
     g2 = g * g

@@ -66,6 +66,9 @@ class Transform:
     def __mul__(self, other: "Transform") -> "Transform":
         return Transform(self.m @ other.m, other.m_inv @ self.m_inv)
 
+    def vector(self, v):
+        return xform_vector(self.m, np.asarray(v, np.float64))
+
     def swaps_handedness(self) -> bool:
         return float(np.linalg.det(self.m[:3, :3])) < 0.0
 

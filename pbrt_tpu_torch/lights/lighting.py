@@ -1,18 +1,22 @@
 """Device-side light table + sampling over wavefront batches.
 
-Port of pbrt_tpu/lights/lighting.py for point lights (reference
-lights/point.cpp) and diffuse area lights (reference lights/diffuse.cpp)
-on triangle meshes and quadrics. The table layout is the reference's
-(kind + transforms + spectrum + params [L, 12]); area lights sample
-their triangle soup (quadric emitters other than full spheres are
-tessellated at compile time) by an area-weighted CDF per light segment,
-and full-sphere emitters sample the subtended cone analytically
-(reference shapes/sphere.cpp Sample):
+Port of pbrt_tpu/lights/lighting.py for point, spot and distant lights
+(reference lights/point.cpp, spot.cpp, distant.cpp) and diffuse area
+lights (reference lights/diffuse.cpp) on triangle meshes and quadrics.
+The table layout is the reference's (kind + transforms + spectrum +
+params [L, 12]); area lights sample their triangle soup (quadric
+emitters other than full spheres are tessellated at compile time) by an
+area-weighted CDF per light segment, and full-sphere emitters sample the
+subtended cone analytically (reference shapes/sphere.cpp Sample):
 
-  AREA params: [0]=total area [1]=is_sphere [2:5]=center [5]=radius
-               [6]=tri_start [7]=tri_count
+  SPOT params:    [0]=cosTotalWidth [1]=cosFalloffStart (spot.cpp:79)
+  DISTANT params: [0:3]=world direction toward the light (distant.cpp:68)
+  AREA params:    [0]=total area [1]=is_sphere [2:5]=center [5]=radius
+                  [6]=tri_start [7]=tri_count
 
-The other light kinds are not yet ported.
+`sample_light` samples an incident direction at shading points;
+`sample_light_ray` samples an emitted ray (photon shooting). The
+goniometric, projection and infinite lights are not yet ported.
 """
 from __future__ import annotations
 
@@ -21,17 +25,20 @@ from typing import NamedTuple
 
 import torch
 
-from pbrt_tpu_torch.core.geometry import coordinate_system, cross, dot, length
+from pbrt_tpu_torch.core.geometry import coordinate_system, cross, dot, length, normalize
 from pbrt_tpu_torch.core.sampling import (
+    concentric_sample_disk,
+    cosine_sample_hemisphere,
     uniform_cone_pdf,
     uniform_sample_cone,
     uniform_sample_sphere,
     uniform_sample_triangle,
 )
+from pbrt_tpu_torch.core.transform import xform_vector
 
 # kind ids as in pbrt_tpu (L_POINT, L_SPOT, L_GONIO, L_PROJECTION,
 # L_DISTANT, L_INFINITE, L_AREA = range(7))
-L_POINT, L_AREA = 0, 6
+L_POINT, L_SPOT, L_DISTANT, L_AREA = 0, 1, 4, 6
 
 BIG = 1e30
 
@@ -57,6 +64,15 @@ class LightSample(NamedTuple):
     pdf: torch.Tensor        # [H] (solid angle; delta lights use 1)
     dist: torch.Tensor       # [H] distance to the light point
     is_delta: torch.Tensor   # [H] bool
+
+
+def spot_falloff(cos_t, cos_width, cos_falloff):
+    """reference lights/spot.cpp Falloff."""
+    d = torch.clamp((cos_t - cos_width) / torch.clamp(cos_falloff - cos_width, min=1e-9),
+                    0.0, 1.0)
+    zero, one = torch.zeros((), device=cos_t.device), torch.ones((), device=cos_t.device)
+    return torch.where(cos_t < cos_width, zero,
+                       torch.where(cos_t > cos_falloff, one, (d * d) * (d * d)))
 
 
 def _pick_area_tri(lights: LightsT, tri_start, tri_count, x):
@@ -97,13 +113,20 @@ def sample_light(lights: LightsT, light_idx, p, u1, u2) -> LightSample:
     spectra = lights.spectra[light_idx]
     params = lights.params[light_idx]
 
-    # POINT
+    # POINT / SPOT share the position falloff
     light_pos = l2w[..., :3, 3]
     d_to_light = light_pos - p
     dist2 = torch.clamp(torch.sum(d_to_light * d_to_light, -1), min=1e-12)
     dist = torch.sqrt(dist2)
     wi_point = d_to_light / dist[..., None]
     L_pt = spectra / dist2[..., None]
+
+    # SPOT: falloff about the light's +z
+    wl = normalize(xform_vector(lights.w2l[light_idx], -wi_point))
+    falloff = spot_falloff(wl[..., 2], params[..., 0], params[..., 1])
+
+    # DISTANT
+    wi_dist = normalize(params[..., 0:3])
 
     # AREA: sample the light's triangle segment by its area CDF
     tri_start = params[..., 6].to(torch.int64)
@@ -175,12 +198,18 @@ def sample_light(lights: LightsT, light_idx, p, u1, u2) -> LightSample:
     L_area = torch.where(is_sphere[..., None], spectra, L_area_tri)
 
     is_pt = kind == L_POINT
+    is_spot = kind == L_SPOT
+    is_distant = kind == L_DISTANT
     is_area = kind == L_AREA
     L = (torch.where(is_pt[..., None], L_pt, zero)
+         + torch.where(is_spot[..., None], L_pt * falloff[..., None], zero)
+         + torch.where(is_distant[..., None], spectra, zero)
          + torch.where(is_area[..., None], L_area, zero))
-    wi = torch.where(is_area[..., None], wi_area, wi_point)
+    wi = torch.where(is_distant[..., None], wi_dist,
+                     torch.where(is_area[..., None], wi_area, wi_point))
     pdf = torch.where(is_area, pdf_area, torch.ones((), device=dev))
-    dist_out = torch.where(is_area, dist_a, dist)
+    dist_out = torch.where(is_distant, torch.full((), BIG, device=dev),
+                           torch.where(is_area, dist_a, dist))
     L = torch.where((pdf > 1e-12)[..., None], L, zero)
     return LightSample(L=L, wi=wi, pdf=torch.clamp(pdf, min=1e-12), dist=dist_out,
                        is_delta=~is_area)
@@ -188,7 +217,8 @@ def sample_light(lights: LightsT, light_idx, p, u1, u2) -> LightSample:
 
 def light_pdf(lights: LightsT, light_idx, p, wi):
     """Solid-angle pdf of sampling direction wi from light light_idx at
-    p, for MIS with BSDF sampling. Point lights are delta lights (0);
+    p, for MIS with BSDF sampling. Point, spot and distant lights are
+    delta lights (0);
     for triangle area lights the caller computes the pdf from the actual
     hit (area_tri_pdf), so this is 0 for them; sphere area lights seen
     from outside give the cone pdf."""
@@ -218,3 +248,87 @@ def area_emission(lights: LightsT, light_idx, ng, wo):
     emits = dot(ng, wo) > 0.0
     return torch.where((emits & (light_idx >= 0))[..., None], spectra,
                        torch.zeros((), device=ng.device))
+
+
+class LightRaySample(NamedTuple):
+    """Emitted-ray sample (the reference's second Sample_L overload,
+    core/light.h:70)."""
+
+    o: torch.Tensor       # [H, 3] origin
+    d: torch.Tensor       # [H, 3] unit direction
+    alpha: torch.Tensor   # [H, S] L / pdf of the light's own sampling
+
+
+def sample_light_ray(lights: LightsT, light_idx, world_c, world_rad: float,
+                     u1, u2, u3, u4) -> LightRaySample:
+    """Sample an emitted photon ray from light light_idx per lane. alpha
+    holds L / pdf for the light's own sampling; the caller divides by the
+    pick pmf (reference photonshooter.cpp:262 alpha = Le / (pdf *
+    lightPdf)). world_c [3], world_rad: the scene's bounding sphere,
+    which a distant light's disk of origins covers."""
+    light_idx = light_idx.long()
+    H = light_idx.shape[0]
+    dev = u1.device
+    zero = torch.zeros((), device=dev)
+    kind = lights.kind[light_idx]
+    l2w = lights.l2w[light_idx]
+    spectra = lights.spectra[light_idx]
+    params = lights.params[light_idx]
+    light_pos = l2w[..., :3, 3]
+
+    # POINT: uniform sphere, pdf = 1/4pi (lights/point.cpp)
+    d_sph = uniform_sample_sphere(u1, u2)
+    a_point = spectra * (4.0 * math.pi)
+
+    # SPOT: uniform cone around the light's +z (lights/spot.cpp)
+    cos_width = params[..., 0]
+    d_cone_l = uniform_sample_cone(u1, u2, cos_width)
+    d_spot = (d_cone_l[..., 0:1] * l2w[..., :3, 0] + d_cone_l[..., 1:2] * l2w[..., :3, 1]
+              + d_cone_l[..., 2:3] * l2w[..., :3, 2])
+    fall = spot_falloff(d_cone_l[..., 2], params[..., 0], params[..., 1])
+    a_spot = spectra * fall[..., None] / uniform_cone_pdf(cos_width)[..., None]
+
+    # DISTANT: a disk of the world's radius, fixed direction (lights/distant.cpp)
+    wi_dist = normalize(params[..., 0:3])   # toward the light
+    v1, v2 = coordinate_system(wi_dist)
+    dx, dy = concentric_sample_disk(u1, u2)
+    p_disk = world_c + world_rad * (dx[..., None] * v1 + dy[..., None] * v2 + wi_dist)
+    a_distant = spectra * (math.pi * world_rad * world_rad)
+
+    # AREA: a point by the triangle CDF (or on the sphere) + a cosine
+    # hemisphere direction (lights/diffuse.cpp)
+    AT = lights.al_v0.shape[0]
+    if AT > 0:
+        tri_j = _pick_area_tri(lights, params[..., 6].to(torch.int64),
+                               params[..., 7].to(torch.int64), u3 * 0.9999999)
+        e1t, e2t = lights.al_e1[tri_j], lights.al_e2[tri_j]
+        b0, b1 = uniform_sample_triangle(u1, u2)
+        p_tri = lights.al_v0[tri_j] + b0[..., None] * e1t + b1[..., None] * e2t
+        n_tri = cross(e1t, e2t)
+        n_tri = n_tri / torch.clamp(length(n_tri), min=1e-12)[..., None]
+    else:
+        p_tri = torch.zeros((H, 3), device=dev)
+        n_tri = torch.zeros((H, 3), device=dev)
+        n_tri[:, 2] = 1.0
+    sph_n = uniform_sample_sphere(u1, u2)
+    p_sph = params[..., 2:5] + params[..., 5][..., None] * sph_n
+    is_sphere = (params[..., 1] > 0.5)[..., None]
+    p_area = torch.where(is_sphere, p_sph, p_tri)
+    n_area = torch.where(is_sphere, sph_n, n_tri)
+    d_cos = cosine_sample_hemisphere(u3, u4)
+    ax1, ax2 = coordinate_system(n_area)
+    d_area = d_cos[..., 0:1] * ax1 + d_cos[..., 1:2] * ax2 + d_cos[..., 2:3] * n_area
+    # pdf = (1/area) (cos/pi): alpha = L area pi / cos, and the cosine
+    # cancels against the emitted power's
+    a_area = spectra * (math.pi * torch.clamp(params[..., 0], min=1e-12))[..., None]
+
+    is_pt = (kind == L_POINT)[..., None]
+    is_spot = (kind == L_SPOT)[..., None]
+    is_distant = (kind == L_DISTANT)[..., None]
+    is_area = (kind == L_AREA)[..., None]
+    o = torch.where(is_distant, p_disk, torch.where(is_area, p_area, light_pos))
+    d = torch.where(is_spot, d_spot, torch.where(is_distant, -wi_dist,
+                                                 torch.where(is_area, d_area, d_sph)))
+    alpha = (torch.where(is_pt, a_point, zero) + torch.where(is_spot, a_spot, zero)
+             + torch.where(is_distant, a_distant, zero) + torch.where(is_area, a_area, zero))
+    return LightRaySample(o=o, d=normalize(d), alpha=alpha)

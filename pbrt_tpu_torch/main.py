@@ -22,7 +22,8 @@ def main(argv=None):
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tile-samples", type=int, default=0,
-                    help="camera samples per wavefront tile (0 = 65536)")
+                    help="camera samples per wavefront tile (0 = 65536; 16384 for "
+                         "the photon integrators)")
     args = ap.parse_args(argv)
 
     import torch

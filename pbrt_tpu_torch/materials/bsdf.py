@@ -358,3 +358,22 @@ def bsdf_sample(lb: Lobes, frame: Frame, wo_w, u_lobe, u1, u2, lam_nm=None) -> B
 
 def has_non_specular(lb: Lobes):
     return (torch.sum(lb.diff_r, -1) > 0) | (torch.sum(lb.gloss, -1) > 0)
+
+
+def has_transmissive(lb: Lobes):
+    """Lane has a transmissive lobe (the dispersion trigger of
+    reference photonshooter.cpp:141-145)."""
+    return torch.sum(lb.spec_t, -1) > 0
+
+
+def has_specular(lb: Lobes):
+    return (torch.sum(lb.spec_r, -1) > 0) | (torch.sum(lb.spec_t, -1) > 0)
+
+
+def rho_proxies(lb: Lobes):
+    """(rho_r, rho_t) reflectance proxies of the density estimates
+    (photon-map LPhoton rho(wo) * INV_PI, reference photonmap.cpp:88-103).
+    The ported kinds have no diffuse or glossy transmission, so rho_t is
+    zero."""
+    rr = lb.diff_r + lb.gloss
+    return rr, torch.zeros_like(rr)

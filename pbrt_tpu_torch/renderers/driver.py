@@ -2,9 +2,11 @@
 
 Port of the sampler path of pbrt_tpu/renderers/driver.py (reference
 renderers/samplerrenderer.cpp:190-249). The image is cut into tiles of
-camera samples (65536 by default); each tile runs camera raygen ->
-surface Li -> volume Li -> filtered film deposit on the scene's device,
-and tiles stream on the host.
+camera samples (65536 by default, 16384 when a photon integrator runs);
+each tile runs camera raygen -> surface Li -> volume Li -> filtered film
+deposit on the scene's device, and tiles stream on the host. The photon
+integrators' maps are built once, before the first tile, and passed to
+them as an argument.
 """
 from __future__ import annotations
 
@@ -20,13 +22,20 @@ from pbrt_tpu_torch.core.sampling import mul32
 from pbrt_tpu_torch.core.transform import Transform
 from pbrt_tpu_torch.cameras.cameras import make_camera
 from pbrt_tpu_torch.film import film as film_mod
+from pbrt_tpu_torch.integrators import photonmap as photonmap_int
+from pbrt_tpu_torch.integrators import photonvolume as photonvolume_int
 from pbrt_tpu_torch.integrators import surface as surf_int
 from pbrt_tpu_torch.integrators import volume as vol_int
+from pbrt_tpu_torch.photon import shooter
 from pbrt_tpu_torch.samplers.samplers import camera_samples, make_sampler
 from pbrt_tpu_torch.scene.compile import CompiledScene, compile_scene
 from pbrt_tpu_torch.scene.records import RenderOptions
 
 DEFAULT_TILE_SAMPLES = 1 << 16
+# photon integrators carry far more per-lane state (kNN candidate
+# buffers, lookups inside the march), so their default tile is smaller
+PHOTON_TILE_SAMPLES = 1 << 14
+PHOTON_SURF = ("photonmap", "exphotonmap")
 BIG = 1e30
 M32 = 0xFFFFFFFF
 
@@ -90,14 +99,20 @@ def build_li_fn(scene: CompiledScene, ro: RenderOptions, options: dict):
     if scene.volume is not None:
         n_steps = vol_int.pick_n_steps(scene.volume, step_size, cap=32 if quick else 128)
     trans_fn = _make_transmittance_fn(scene, max(4, n_steps // 2))
-    if sname not in ("path", "directlighting", "whitted", "ambientocclusion"):
+    if sname not in ("path", "directlighting", "whitted", "ambientocclusion") + PHOTON_SURF:
         warning(f'SurfaceIntegrator "{sname}" unknown; using "path".')
         sname = "path"
-    if scene.volume is not None and vname not in ("none", "emission", "single"):
+    if scene.volume is not None and vname not in ("none", "emission", "single", "photonvolume"):
         warning(f'VolumeIntegrator "{vname}" unknown; using "single".')
         vname = "single"
+    ctx = None
+    if uses_photons(ro):
+        ctx = shooter.build_photon_maps(scene, sp, vp, options)
 
     def surface_li(ray, pixel, sidx, seed):
+        if sname in PHOTON_SURF:
+            return photonmap_int.li_photonmap(scene, ctx, ray, pixel, sidx, max_depth=max_depth,
+                                              seed=seed, transmittance_fn=trans_fn)
         if sname == "directlighting":
             return surf_int.li_direct(scene, ray, pixel, sidx, max_depth=max_depth, seed=seed,
                                       strategy=sp.find_one_string("strategy", "all"),
@@ -115,6 +130,9 @@ def build_li_fn(scene: CompiledScene, ro: RenderOptions, options: dict):
     def volume_li(ray, t_surf, pixel, sidx, seed):
         if vname == "emission":
             return vol_int.li_emission(scene.volume, ray, t_surf, pixel, sidx, n_steps, seed)
+        if vname == "photonvolume":
+            return photonvolume_int.li_photonvolume(scene, ctx, ray, t_surf, pixel, sidx,
+                                                    n_steps, seed)
         return vol_int.li_single(scene, ray, t_surf, pixel, sidx, n_steps, seed)
 
     def li(ray: Ray, pixel, sidx, seed: int):
@@ -126,6 +144,10 @@ def build_li_fn(scene: CompiledScene, ro: RenderOptions, options: dict):
         return vr.Tr * L_surf + vr.L
 
     return li
+
+
+def uses_photons(ro: RenderOptions) -> bool:
+    return ro.surf_integrator_name in PHOTON_SURF or ro.vol_integrator_name == "photonvolume"
 
 
 def first_hit_t(scene: CompiledScene, ray: Ray):
@@ -142,7 +164,8 @@ def render_sampler(scene: CompiledScene, ro: RenderOptions, film, camera, sample
     seed = int(options.get("seed", 0))
     spp = sampler.spp
     device = scene.geom.tri_v0.device
-    tile_samples = int(options.get("tile_samples") or DEFAULT_TILE_SAMPLES)
+    tile_samples = int(options.get("tile_samples")
+                       or (PHOTON_TILE_SAMPLES if uses_photons(ro) else DEFAULT_TILE_SAMPLES))
     pix_per_tile = max(1, tile_samples // spp)
     n_pix = film.nx * film.ny
     n_tiles = (n_pix + pix_per_tile - 1) // pix_per_tile

@@ -1,8 +1,8 @@
 """Scene compiler: host records -> device tensors.
 
 Port of the slice of pbrt_tpu/scene/compile.py the ported paths need:
-triangle meshes and quadrics, point and diffuse area lights (on meshes
-and quadrics), volume regions, and the matte, plastic, mirror and glass
+triangle meshes and quadrics, point, spot, distant and diffuse area
+lights (on meshes and quadrics), volume regions, and the matte, plastic, mirror and glass
 materials with constant textures. Everything else a scene may use that
 the JAX package knows fails here with "not yet ported: <name>" — the
 compiler never substitutes something else.
@@ -20,7 +20,7 @@ from pbrt_tpu_torch.core.error import PbrtError, info, warning
 from pbrt_tpu_torch.core.sampling import Distribution1D
 from pbrt_tpu_torch.core.transform import Transform, xform_point_affine
 from pbrt_tpu_torch.accel.intersect import SceneGeom, make_quad_pack, make_tri_pack
-from pbrt_tpu_torch.lights.lighting import L_AREA, L_POINT, LightsT
+from pbrt_tpu_torch.lights.lighting import L_AREA, L_DISTANT, L_POINT, L_SPOT, LightsT
 from pbrt_tpu_torch.materials.bsdf import PORTED_KINDS, BsdfParams
 from pbrt_tpu_torch.materials.registry import KIND_ID
 from pbrt_tpu_torch.scene.records import MaterialRecord, RenderOptions, ShapeRecord
@@ -30,13 +30,11 @@ from pbrt_tpu_torch.volumes.registry import VolumeT, build_volumes
 
 S = spec.N_BINS
 
-_LIGHTS_NOT_PORTED = ("spot", "goniometric", "projection", "distant", "infinite",
-                      "exinfinite")
+_LIGHTS_NOT_PORTED = ("goniometric", "projection", "infinite", "exinfinite")
 # names the JAX package renders and this package does not yet; names
 # that neither knows warn and fall back in the render driver
 _SURF_NOT_PORTED = ("igi", "irradiancecache", "dipolesubsurface", "diffuseprt", "glossyprt",
-                    "useprobes", "photonmap", "exphotonmap")
-_VOL_NOT_PORTED = ("photonvolume",)
+                    "useprobes")
 
 
 def not_ported(what: str):
@@ -99,8 +97,6 @@ def _check_options(ro: RenderOptions):
         not_ported(f'renderer "{ro.renderer_name}"')
     if ro.surf_integrator_name in _SURF_NOT_PORTED:
         not_ported(f'surface integrator "{ro.surf_integrator_name}"')
-    if ro.vol_integrator_name in _VOL_NOT_PORTED:
-        not_ported(f'volume integrator "{ro.vol_integrator_name}"')
     if ro.accelerator_name in ("grid", "kdtree"):
         not_ported(f'accelerator "{ro.accelerator_name}"')
 
@@ -265,7 +261,8 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
         quad_pack=dev(make_quad_pack(Q_o2w, Q_w2o, Q_params, Q_type, Q_flip, Q_mat, Q_light)),
         quad_present=frozenset(int(k) for k in Q_type),
     )
-    lights, light_dist = _build_lights(ro, area_rows, al_v0, al_e1, al_e2, al_area, device)
+    lights, light_dist = _build_lights(ro, area_rows, al_v0, al_e1, al_e2, al_area,
+                                       world_lo, world_hi, device)
     volume = build_volumes(ro.volume_regions, device)
     disp = np.asarray([m.dispersive() for m in materials], bool)
     info(f"compiled scene: {len(TV0)} tris, {len(quads)} quadrics, "
@@ -285,9 +282,12 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
                          world_lo=world_lo, world_hi=world_hi, accel=accel, volume=volume)
 
 
-def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area, device):
+def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area,
+                  world_lo, world_hi, device):
     """Lower light records + collected area-light rows to LightsT."""
     kinds, l2w, spectra, params, power, nsamples = [], [], [], [], [], []
+    world_c = 0.5 * (world_lo + world_hi)
+    world_rad = float(np.linalg.norm(world_hi - world_c)) + 1e-3
 
     def add(kind, xform: Transform, spectrum, pr, pw, ns=1):
         kinds.append(kind)
@@ -304,15 +304,42 @@ def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area, de
         name = rec.kind
         if name in _LIGHTS_NOT_PORTED:
             not_ported(f'light "{name}"')
-        if name != "point":
+        if name not in ("point", "spot", "distant"):
             warning(f'Light "{name}" unknown.')
             continue
         ns = p.find_one_int("nsamples", 1)
         ones = spec.from_rgb(np.ones(3, np.float32))
         sc = np.asarray(p.find_one_spectrum("scale", ones), np.float32)
-        I = np.asarray(p.find_one_spectrum("I", ones), np.float32) * sc
-        frm = np.asarray(p.find_one_point("from", [0, 0, 0]), np.float64)
-        add(L_POINT, rec.l2w * Transform.translate(frm), I, [], 4.0 * np.pi * I, ns)
+        if name == "point":
+            I = np.asarray(p.find_one_spectrum("I", ones), np.float32) * sc
+            frm = np.asarray(p.find_one_point("from", [0, 0, 0]), np.float64)
+            add(L_POINT, rec.l2w * Transform.translate(frm), I, [], 4.0 * np.pi * I, ns)
+        elif name == "spot":
+            I = np.asarray(p.find_one_spectrum("I", ones), np.float32) * sc
+            cone = p.find_one_float("coneangle", 30.0)
+            delta = p.find_one_float("conedeltaangle", 5.0)
+            frm = np.asarray(p.find_one_point("from", [0, 0, 0]), np.float64)
+            to = np.asarray(p.find_one_point("to", [0, 0, 1]), np.float64)
+            d = to - frm
+            dn = d / max(np.linalg.norm(d), 1e-12)
+            # light-to-world with +z along the beam (reference spot.cpp)
+            du = np.array([0.0, 1.0, 0.0]) if abs(dn[2]) > 0.9 else np.array([0.0, 0.0, 1.0])
+            x = np.cross(du, dn)
+            x /= max(np.linalg.norm(x), 1e-12)
+            m = np.eye(4)
+            m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = x, np.cross(dn, x), dn, frm
+            cw = np.cos(np.deg2rad(cone))
+            cf = np.cos(np.deg2rad(cone - delta))
+            add(L_SPOT, rec.l2w * Transform(m), I, [cw, cf],
+                I * 2.0 * np.pi * (1.0 - 0.5 * (cw + cf)), ns)
+        else:  # distant
+            L = np.asarray(p.find_one_spectrum("L", ones), np.float32) * sc
+            frm = np.asarray(p.find_one_point("from", [0, 0, 0]), np.float64)
+            to = np.asarray(p.find_one_point("to", [0, 0, 1]), np.float64)
+            d = frm - to   # toward the light
+            dn = rec.l2w.vector(d / max(np.linalg.norm(d), 1e-12))
+            add(L_DISTANT, Transform(), L, list(np.asarray(dn, np.float64)),
+                L * np.pi * world_rad * world_rad, ns)
         p.report_unused(f'in light "{name}"')
 
     for row in area_rows:

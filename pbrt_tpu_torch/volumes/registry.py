@@ -11,8 +11,8 @@ Kinds and params layout (params [V, 8]):
   GRID:        densities in `grid`, dims in `grid_dims`  (volumegrid.cpp:63)
   EXPONENTIAL: [0]=a [1]=b [2:5]=updir                   (exponential.cpp:42)
   RAINBOW:     a homogeneous density region; its angle-to-wavelength
-               transfer belongs to the photon volume integrator, not yet
-               ported
+               transfer (rainbow_reflection) is applied by the photon
+               volume integrator
 
 The region kinds and grid dims are also kept on the host (host_kind,
 host_dims), so the per-region branches are chosen without a device read.
@@ -27,7 +27,7 @@ import torch
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.error import warning
 from pbrt_tpu_torch.core.geometry import dot
-from pbrt_tpu_torch.core.sampling import phase_hg
+from pbrt_tpu_torch.core.sampling import phase_hg, phase_mie_hazy
 from pbrt_tpu_torch.core.transform import xform_point_affine, xform_vector
 from pbrt_tpu_torch.scene.records import VolumeRecord
 
@@ -254,3 +254,31 @@ def tau(vol: VolumeT, ray_o, ray_d, t0, t1, n_steps: int, u_offset):
 def phase(vol_g, w, wi):
     """HG phase between unit directions (g=0 -> isotropic)."""
     return phase_hg(dot(w, wi), vol_g)
+
+
+# ---------------------------------------------------------------------------
+# RainbowVolume transfer function (reference volumes/rainbow.cpp:41-78)
+
+def rainbow_reflection(spectrum_in, w, wi):
+    """Angle -> wavelength rainbow transfer. spectrum_in [P, S]: incident
+    spectrum; w: outgoing (eye) direction, wi: incident (light)
+    direction, both unit, as in the reference's rainbowReflection(L,
+    ray.d, wo), with theta = angle(wi, -w). Constants from the reference:
+    primary bow 40.4-42.3 deg -> 400-700 nm at 0.92; secondary 51-54.4
+    deg reversed at 42% of that; a mist floor of 8%; an inner-glow ramp
+    over 40.4 -> 40.45 deg."""
+    cos_t = torch.clamp(dot(wi, -w), -1.0, 1.0)
+    theta = torch.rad2deg(torch.arccos(cos_t))
+    ramp = 1.0 - 0.1 * torch.clamp((theta - 40.4) / 0.05, 0.0, 1.0)
+    intensity = phase_mie_hazy(cos_t) * ramp
+    in_primary = (theta >= 40.4) & (theta <= 42.3)
+    in_secondary = (theta >= 51.0) & (theta <= 54.4)
+    lam_p = 400.0 + (theta - 40.4) / (42.3 - 40.4) * 300.0
+    lam_s = 700.0 - (theta - 51.0) / (54.4 - 51.0) * 300.0
+    lam = torch.where(in_primary, lam_p, lam_s)
+    zero = torch.zeros((), device=cos_t.device)
+    rainbow_i = torch.where(in_primary, torch.full((), 0.92, device=cos_t.device),
+                            torch.where(in_secondary, torch.full((), 0.42 * 0.92,
+                                                                 device=cos_t.device), zero))
+    filtered = spec.band_filter(spectrum_in, lam)
+    return intensity[..., None] * (0.08 * spectrum_in + rainbow_i[..., None] * filtered)

@@ -1,11 +1,13 @@
 """The reference-binary goldens rendered by the port on the CPU.
 
-`matte`, `meshdl`, `mesh`, `smoke` and `vol` (quadrics, directlighting,
-path, dispersive glass, single scattering in a homogeneous volume) are
-rendered at their authored size and sample count and held to the bounds
-of tests/test_reference_golden.py against the reference binary's images.
+`matte`, `meshdl`, `mesh`, `smoke`, `vol` and `disp` (quadrics,
+directlighting, path, dispersive glass, single scattering in a
+homogeneous volume, photon mapping of a dispersive caustic) are rendered
+at their authored size and sample count and held to the bounds of
+tests/test_reference_golden.py against the reference binary's images.
 
-Then each is rendered by the port and by the JAX package at the same
+Then each but `disp` (tests/test_torch_photon_*.py hold the photon
+integrators against the JAX package) is rendered by the port and by the JAX package at the same
 seed on a centred crop of at most 24 x 24 pixels at 4 spp, and so are
 `meshdl` under whitted and under directlighting "strategy" "one", and an
 ambientocclusion render at 16 x 16. The random streams are bit-identical,
@@ -33,7 +35,8 @@ from test_reference_golden import CASES, GOLDEN_DIR
 
 torch.set_num_threads(1)  # small tensors: intra-op threads only contend with the other test workers
 
-PORTED = ("matte", "meshdl", "mesh", "smoke", "vol")
+PORTED = ("matte", "meshdl", "mesh", "smoke", "vol", "disp")
+CROPPED = PORTED[:5]
 BOUNDS = {name: (mean_rtol, pix) for name, mean_rtol, pix in CASES if name in PORTED}
 CROP_DEPTH = {"matte": 1, "vol": 1, "meshdl": 2, "mesh": 2, "smoke": 3}
 CROP = (0.3125, 0.6875, 0.3125, 0.6875)
@@ -95,7 +98,7 @@ def assert_same_render(tmp_path, text):
     assert (rel <= 1e-3).mean() >= 0.99
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", CROPPED)
 def test_port_matches_jax_on_crop(tmp_path, name):
     assert_same_render(tmp_path, golden_text(name, crop=CROP, spp=4, depth=CROP_DEPTH[name]))
 

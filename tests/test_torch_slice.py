@@ -146,7 +146,7 @@ def test_bridge_round_trip(compiled):
 NOT_PORTED = {
     "heightfield": 'Shape "heightfield" "integer nu" [2] "integer nv" [2] '
                    '"float Pz" [0 0 0 0]',
-    "spot light": 'LightSource "spot"',
+    "goniometric light": 'LightSource "goniometric"',
     "metal": 'Material "metal"\n' + mesh(QUAD, QUAD_IDX),
     "texture": 'Texture "c" "color" "checkerboard"',
     "loopsubdiv": 'Shape "loopsubdiv" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
@@ -156,7 +156,7 @@ NOT_PORTED = {
 NOT_PORTED_OPTIONS = {
     "orthographic": 'Camera "orthographic"',
     "halton": 'Sampler "halton"',
-    "photonvolume": 'VolumeIntegrator "photonvolume"',
+    "igi": 'SurfaceIntegrator "igi"',
     "metropolis": 'Renderer "metropolis"',
 }
 
