@@ -19,8 +19,15 @@ matte, meshdl, mesh, smoke and vol (quadrics, directlighting, path,
 single scattering) against their reference images and the CPU render
 ([9]), renders benchvol (the bench geometry with a glass sphere, a disk
 light and a homogeneous volume) with event spans around the quadric
-fold, the volume march and K2 ([10]), and prints one JSON line per the
-contract below. Every phase raises on failure; the script then exits
+fold, the volume march and K2 ([10]), the exact rainbowc golden within
+its reference-binary bounds and against the CPU on a crop ([11]),
+bench.py's photon legs ([12]) and benchphoton ([13]), benchtex (the
+bench geometry in textured, bump-mapped mix and uber materials) with
+event spans around K2 and the texture and material evaluation ([14]),
+and a small textured scene (every further material kind, an image map,
+a bump map, an alpha mask) on the card against the CPU, every K1 launch
+bit for bit ([15]); then it prints one JSON line per the contract
+below. Every phase raises on failure; the script then exits
 non-zero and prints no result. It needs no network and no JAX.
 
     python3 chip_smoke.py --profile   # also: bench render under torch.profiler
@@ -69,8 +76,11 @@ GOLDENS = (("matte", 0.02, 0.03), ("meshdl", 0.03, 0.08), ("mesh", 0.05, 0.15),
            ("smoke", 0.05, 0.10), ("vol", 0.05, 0.08), ("disp", 0.08, 0.30))
 BENCHVOL_RES = 1024
 BENCHVOL_CHECK_RES = 16   # benchvol's card-vs-CPU check
-RAINBOWC_BOUNDS = (0.05, 0.15)    # rainbowc's reference-binary bounds, printed as information
+RAINBOWC_BOUNDS = (0.05, 0.15)    # rainbowc's reference-binary bounds (mean ratio, MAD / level)
 RAINBOWC_CROP = (0.375, 0.625, 0.375, 0.625)   # 24 x 24 of 96 x 96
+BENCHTEX_RES = 1024
+SMALLTEX_RES = 32          # [15]'s card-vs-CPU size (4 spp)
+MERL_DIMS = (90, 90, 180)  # MERL theta_h x theta_d x phi_d (materials/measured.py)
 S_BINS = 30                # spectral bins (pbrt_tpu_torch/core/spectrum.py)
 SHOOT_B = 32768            # photon paths per shooting batch at large quotas
 KNN_P, KNN_Q, KNN_K = 1_000_000, 65536, 500   # [12]'s kNN leg
@@ -204,16 +214,109 @@ WorldEnd
 """
 
 
-def rainbowc_const_text(crop=None):
-    """tests/goldens/rainbowc.pbrt with the walls' imagemap x scale
-    texture replaced by its value where the image is white, 0.02."""
+def rainbowc_text(crop=None):
+    """tests/goldens/rainbowc.pbrt as it stands (its walls' imagemap x
+    scale texture reads the missing textures/lines.tga as one white
+    texel, as the reference does), optionally cropped."""
     with open(os.path.join(GOLDEN_DIR, "rainbowc.pbrt")) as f:
         s = f.read()
-    s = "\n".join(ln for ln in s.splitlines() if not ln.startswith("Texture ")) + "\n"
-    s = s.replace('Material "matte" "texture Kd" "sgrid"', 'Material "matte" "rgb Kd" [.02 .02 .02]')
     if crop is not None:
         s = re.sub(r'(Film "image"[^\n]*)', r'\1 "float cropwindow" [%g %g %g %g]' % crop, s)
     return s
+
+
+def benchtex_image():
+    """benchtex's floor image: 1024^2 RGB, 32-texel tiles of seeded
+    random colours under diagonal stripes (NumPy, seed 14)."""
+    rng = np.random.RandomState(14)
+    tiles = np.kron(rng.uniform(0.15, 0.85, (32, 32, 3)), np.ones((32, 32, 1)))
+    y, x = np.mgrid[0:1024, 0:1024]
+    stripes = 0.75 + 0.25 * np.sin((x + y) * (2 * np.pi / 64.0))
+    return (tiles * stripes[..., None]).astype(np.float32)
+
+
+def benchtex_scene_text(res, img_path):
+    """The bench geometry (135,202 triangles) in textured materials: the
+    sphere a mix (amount a 3D checkerboard) of a substrate (Kd a marble
+    texture, uroughness != vroughness: the anisotropic FresnelBlend) and
+    copper metal; the floor, with uv, an uber with an imagemap Kd (EWA,
+    repeat) and a scale(dots) Ks, bump-mapped by a wrinkled texture (a
+    mix takes no bumpmap in either package: eval_bump reads the top-level
+    material's). 1 spp, path maxdepth 5, the bench point light."""
+    P, idx = uv_sphere(260, 260, 1.0, (0.0, 0.4, 0.0))
+    return (f'Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]\n'
+            'Sampler "lowdiscrepancy" "integer pixelsamples" [1]\n'
+            'LookAt 0 1.2 -4  0 0.4 0  0 1 0\nCamera "perspective" "float fov" [45]\n'
+            'SurfaceIntegrator "path" "integer maxdepth" [5]\nWorldBegin\n'
+            'LightSource "point" "point from" [3 6 -4] "rgb I" [60 60 60]\n'
+            'Texture "marble" "color" "marble" "float scale" [3] "float variation" [.6]\n'
+            'TransformBegin\nScale .25 .25 .25\n'
+            'Texture "chk3" "color" "checkerboard" "integer dimension" [3]\n'
+            '    "rgb tex1" [.9 .9 .9] "rgb tex2" [.2 .2 .2]\nTransformEnd\n'
+            'Texture "wr" "float" "wrinkled" "integer octaves" [6]\n'
+            'Texture "bump" "float" "scale" "texture tex1" "wr" "float tex2" [.03]\n'
+            f'Texture "img" "color" "imagemap" "string filename" "{img_path}"\n'
+            'Texture "dots" "color" "dots" "rgb inside" [.6 .6 .6] "rgb outside" [.05 .05 .05]\n'
+            '    "float uscale" [4] "float vscale" [4]\n'
+            'Texture "ks" "color" "scale" "texture tex1" "dots" "rgb tex2" [.8 .8 .8]\n'
+            'MakeNamedMaterial "sub" "string type" "substrate" "texture Kd" "marble"\n'
+            '    "rgb Ks" [.06 .06 .06] "float uroughness" [.02] "float vroughness" [.2]\n'
+            'MakeNamedMaterial "cu" "string type" "metal"\n'
+            'AttributeBegin\nMaterial "mix" "string namedmaterial1" "sub" '
+            '"string namedmaterial2" "cu" "texture amount" "chk3"\n' + mesh(P, idx)
+            + 'AttributeEnd\nMaterial "uber" "texture Kd" "img" "texture Ks" "ks" '
+            '"float roughness" [.05] "texture bumpmap" "bump"\n'
+            + mesh(FLOOR, FLOOR_IDX)[:-1] + ' "float uv" [0 0 6 0 6 6 0 6]\n' + "WorldEnd\n")
+
+
+def write_const_merl(path, rgb=(0.3, 0.5, 0.2)):
+    """A constant MERL binary file: 3 int32 dims, then the R, G, B planes
+    (float64) divided by MERL's colour scales (materials/measured.py)."""
+    n = MERL_DIMS[0] * MERL_DIMS[1] * MERL_DIMS[2]
+    scale = np.array([1.0 / 1500.0, 1.15 / 1500.0, 1.66 / 1500.0])
+    with open(path, "wb") as f:
+        np.array(MERL_DIMS, np.int32).tofile(f)
+        np.concatenate([np.full(n, rgb[c] / scale[c], np.float64) for c in range(3)]).tofile(f)
+
+
+def smalltex_scene_text(res, spp, img_path, merl_path):
+    """The small scene's layout in the materials of this slice: spheres in
+    translucent, shinymetal, kdsubsurface and measured (a constant MERL
+    file); the floor an imagemap-textured plastic with an fbm bump; a quad
+    masked by a 2D checkerboard alpha in front of the first sphere;
+    7,206 triangles."""
+    quad = np.array([[-1, 3, -1], [1, 3, -1], [1, 3, 1], [-1, 3, 1]], np.float32)
+    s = (f'Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]\n'
+         f'Sampler "lowdiscrepancy" "integer pixelsamples" [{spp}]\n'
+         'PixelFilter "gaussian"\n'
+         'LookAt 0 1.5 -5  0 0.3 0  0 1 0\nCamera "perspective" "float fov" [45]\n'
+         'SurfaceIntegrator "path" "integer maxdepth" [5]\nWorldBegin\n'
+         'LightSource "point" "point from" [2 4 -3] "rgb I" [15 15 15]\n'
+         f'Texture "img" "color" "imagemap" "string filename" "{img_path}"\n'
+         '    "float uscale" [3] "float vscale" [3]\n'
+         'Texture "fbm" "float" "fbm" "integer octaves" [5]\n'
+         'Texture "bump" "float" "scale" "texture tex1" "fbm" "float tex2" [.02]\n'
+         'Texture "cut" "float" "checkerboard" "float tex1" [1] "float tex2" [0]\n'
+         '    "float uscale" [4] "float vscale" [4]\n'
+         'AttributeBegin\nAreaLightSource "diffuse" "rgb L" [6 6 6]\n'
+         + mesh(quad, FLOOR_IDX) + "AttributeEnd\n")
+    mats = ['Material "translucent" "rgb Kd" [.5 .4 .3] "rgb reflect" [.5 .5 .5] '
+            '"rgb transmit" [.4 .4 .4] "float roughness" [.1]',
+            'Material "shinymetal" "rgb Ks" [.7 .6 .4] "rgb Kr" [.3 .3 .3] "float roughness" [.05]',
+            'Material "kdsubsurface" "rgb Kd" [.6 .4 .3]',
+            f'Material "measured" "string filename" "{merl_path}"']
+    for k, m in enumerate(mats):
+        P, idx = uv_sphere(30, 30, 0.5, (-1.8 + 1.2 * k, 0.5, 0.0))
+        s += f"AttributeBegin\n{m}\n" + mesh(P, idx) + "AttributeEnd\n"
+    cut = np.array([[-2.4, 0.0, -0.7], [-1.2, 0.0, -0.7], [-1.2, 1.2, -0.7], [-2.4, 1.2, -0.7]],
+                   np.float32)
+    s += ('AttributeBegin\nMaterial "matte" "rgb Kd" [.7 .2 .2]\n' + mesh(cut, FLOOR_IDX)[:-1]
+          + ' "float uv" [0 0 1 0 1 1 0 1] "texture alpha" "cut"\nAttributeEnd\n')
+    floor = FLOOR.copy()
+    floor[:, 1] = 0.0
+    return (s + 'Material "plastic" "texture Kd" "img" "rgb Ks" [.2 .2 .2] '
+            '"texture bumpmap" "bump"\n' + mesh(floor, FLOOR_IDX)[:-1]
+            + ' "float uv" [0 0 1 0 1 1 0 1]\n' + "WorldEnd\n")
 
 
 def small_scene_text(res, spp):
@@ -927,50 +1030,149 @@ def phase_benchvol(tmp):
 
 
 def phase_rainbowc(tmp):
-    """[11]: rainbowc_const through the CLI on the card at its authored
-    size (photonmap with final gather, photonvolume in a rainbow region
-    under a distant light), its mean and mean abs diff against the
-    reference binary's rainbowc image printed as information; every K1
-    launch held bit for bit against the plain twin in a second render;
-    then a 24^2 crop on the card and on the CPU. -> dict."""
+    """[11]: the exact rainbowc (tests/goldens/rainbowc.pbrt: its walls'
+    imagemap x scale texture over the missing lines.tga, a white texel)
+    through the CLI on the card at its authored size (photonmap with
+    final gather, photonvolume in a rainbow region under a distant
+    light), held to the reference binary's bounds RAINBOWC_BOUNDS; every
+    K1 launch held bit for bit against the plain twin in a second
+    render; then a 24^2 crop on the card and on the CPU. -> dict."""
     from pbrt_tpu_torch.io.image import read_image
     from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
 
-    text = rainbowc_const_text()
+    text = rainbowc_text()
     intersect_cuda.launches = 0
     bvh_cuda.launches = 0
     with NoPlain():
-        img, sec = render(text, "rainbowc_const", tmp)
+        img, sec = render(text, "rainbowc", tmp)
     k1_launches, k2_launches = intersect_cuda.launches, bvh_cuda.launches
     ref = np.asarray(read_image(os.path.join(GOLDEN_DIR, "ref_rainbowc.pfm")))
     level = max(float(ref.mean()), 1e-6)
     mean_ratio = float(img.mean()) / level
     mad_ratio = float(np.abs(img - ref).mean()) / level
+    mean_rtol, pix_bound = RAINBOWC_BOUNDS
+    ok = img.shape == ref.shape and abs(mean_ratio - 1) < mean_rtol and mad_ratio < pix_bound
     log(f"  {img.shape[1]}x{img.shape[0]}: {sec:.2f} s, K1 launches {k1_launches}, K2 launches "
-        f"{k2_launches}; vs the reference binary's rainbowc (textured walls; information "
-        f"only): mean level ratio {mean_ratio:.4f}, mean abs diff / level {mad_ratio:.4f} "
-        f"(rainbowc's bounds {RAINBOWC_BOUNDS})")
+        f"{k2_launches}; vs the reference binary: mean level ratio {mean_ratio:.4f} (bound "
+        f"|1 - r| < {mean_rtol}), mean abs diff / level {mad_ratio:.4f} (bound {pix_bound}): "
+        f"{'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("rainbowc outside the reference-binary bounds")
     if k1_launches <= 0:
-        raise RuntimeError("rainbowc_const did not launch K1")
+        raise RuntimeError("rainbowc did not launch K1")
     rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
     with Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
-        render(text, "rainbowc_const_checked", tmp)
+        render(text, "rainbowc_checked", tmp)
     r = rec.summary()
     r.pop("live_share_per_launch")
     if r["launches"] != k1_launches:
-        raise RuntimeError(f"rainbowc_const: K1 launches differ between renders: "
+        raise RuntimeError(f"rainbowc: K1 launches differ between renders: "
                            f"{r['launches']} vs {k1_launches}")
     log(f"  every one of {r['launches']} K1 launches bit-equal to the plain twin; kernel "
         f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, live share {r['live_share']:.4f}, "
         f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    crop = rainbowc_const_text(crop=RAINBOWC_CROP)
+    crop = rainbowc_text(crop=RAINBOWC_CROP)
     tile = ("--tile-samples", str(24 * 24 * 2))   # one tile of exactly the crop's samples
     gpu, _ = render(crop, "rainbowc_crop_gpu", tmp, extra=tile)
     cpu, cpu_sec = render(crop, "rainbowc_crop_cpu", tmp, extra=(*tile, "--device", "cpu"))
-    mean_rel, within = agree(gpu, cpu, f"rainbowc_const 24x24 crop ({cpu_sec:.2f} s on the CPU)")
+    mean_rel, within = agree(gpu, cpu, f"rainbowc 24x24 crop ({cpu_sec:.2f} s on the CPU)")
     return {"seconds": sec, "k1_launches": k1_launches, "k2_launches": k2_launches,
-            "mean_ratio": mean_ratio, "mad_ratio": mad_ratio, "k1": r, "cpu_seconds": cpu_sec,
-            "cpu_mean_rel": mean_rel, "cpu_within_1e-3": within}
+            "mean_ratio": mean_ratio, "mad_ratio": mad_ratio, "bounds": list(RAINBOWC_BOUNDS),
+            "pass": ok, "k1": r, "cpu_seconds": cpu_sec, "cpu_mean_rel": mean_rel,
+            "cpu_within_1e-3": within}
+
+
+def phase_benchtex(tmp):
+    """[14]: benchtex through the CLI on the card (timed), then again with
+    CUDA events around every K2 launch and around every
+    eval_bsdf_params and eval_bump call (the texture and material
+    evaluation) -> dict."""
+    from pbrt_tpu_torch.io.image import write_image
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+    from pbrt_tpu_torch.scene import compile as compile_mod
+
+    res = BENCHTEX_RES
+    img_path = os.path.join(tmp, "benchtex_floor.pfm")
+    write_image(img_path, benchtex_image())
+    text = benchtex_scene_text(res, img_path)
+    intersect_cuda.launches = 0
+    bvh_cuda.launches = 0
+    with NoPlain():
+        img, sec = render(text, "benchtex", tmp)
+    k2_launches, k1_launches = bvh_cuda.launches, intersect_cuda.launches
+    log(f"  {res}x{res}, 1 spp: {sec:.2f} s end to end (parse + compile + BVH build + render), "
+        f"{res * res / sec:.0f} camera rays/s, image mean {img.mean():.5f}, K2 launches "
+        f"{k2_launches}, K1 launches {k1_launches}")
+    if k2_launches <= 0:
+        raise RuntimeError("benchtex render did not launch K2")
+
+    k2 = LaunchTimer(bvh_cuda.wide_sweep_cuda, work=k2_work)
+    params = LaunchTimer(compile_mod.eval_bsdf_params)
+    bump = LaunchTimer(compile_mod.eval_bump)
+    bvh_cuda.launches = 0
+    with NoPlain(), Patched((bvh_cuda, "wide_sweep", k2),
+                            (compile_mod, "eval_bsdf_params", params),
+                            (compile_mod, "eval_bump", bump)):
+        _, sec_ev = render(text, "benchtex_events", tmp)
+    if bvh_cuda.launches != k2_launches:
+        raise RuntimeError(f"benchtex: K2 launches differ between renders: "
+                           f"{bvh_cuda.launches} vs {k2_launches}")
+    work = k2.work_rows()
+    spans = {"eval_bsdf_params_ms": params.total_ms(), "eval_bsdf_params_calls": len(params.events),
+             "eval_bump_ms": bump.total_ms(), "eval_bump_calls": len(bump.events),
+             "k2_ms": k2.total_ms(), "k2_launches": len(k2.events),
+             "k2_pairs": sum(w[0] for w in work),
+             "k2_bound_ms": sum(max(f, b) for f, b in (k2_launch_bound(*w) for w in work))}
+    tex_ms = spans["eval_bsdf_params_ms"] + spans["eval_bump_ms"]
+    log(f"  again with events: {sec_ev:.2f} s end to end; event spans: eval_bsdf_params "
+        f"{spans['eval_bsdf_params_ms']:.1f} ms over {spans['eval_bsdf_params_calls']} calls, "
+        f"eval_bump {spans['eval_bump_ms']:.1f} ms over {spans['eval_bump_calls']} calls "
+        f"(together {tex_ms / 1e3 / sec_ev:.3f} of the render), K2 {spans['k2_ms']:.1f} ms over "
+        f"{spans['k2_launches']} launches ({spans['k2_pairs']} (tile, block) pairs, bound "
+        f"{spans['k2_bound_ms']:.3f} ms)")
+    return {"res": res, "seconds": sec, "camera_rays_per_s": res * res / sec,
+            "seconds_with_events": sec_ev, "k2_launches": k2_launches,
+            "k1_launches": k1_launches, "image_mean": float(img.mean()), "spans": spans,
+            "texture_share": tex_ms / 1e3 / sec_ev}
+
+
+def phase_smalltex(tmp):
+    """[15]: the small textured scene at SMALLTEX_RES^2, 4 spp on the card
+    and on the CPU (agree()'s limits), then on the card again with every
+    K1 launch held bit for bit against the plain twin. -> dict."""
+    from pbrt_tpu_torch.io.image import write_image
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+
+    merl = os.path.join(tmp, "const.binary")
+    write_const_merl(merl)
+    img_path = os.path.join(tmp, "smalltex.pfm")
+    write_image(img_path, benchtex_image()[::16, ::16])
+    text = smalltex_scene_text(SMALLTEX_RES, 4, img_path, merl)
+    tile = ("--tile-samples", str(SMALLTEX_RES * SMALLTEX_RES * 4))
+    intersect_cuda.launches = 0
+    bvh_cuda.launches = 0
+    with NoPlain():
+        gpu, sec = render(text, "smalltex_gpu", tmp, extra=tile)
+    k1_launches = intersect_cuda.launches
+    if k1_launches <= 0:
+        raise RuntimeError("smalltex render did not launch K1")
+    cpu, cpu_sec = render(text, "smalltex_cpu", tmp, extra=(*tile, "--device", "cpu"))
+    mean_rel, within = agree(gpu, cpu, f"smalltex {SMALLTEX_RES}x{SMALLTEX_RES} "
+                             f"({sec:.2f} s on the card, {cpu_sec:.2f} s on the CPU)")
+    rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
+    with Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
+        render(text, "smalltex_checked", tmp, extra=tile)
+    r = rec.summary()
+    r.pop("live_share_per_launch")
+    if r["launches"] != k1_launches:
+        raise RuntimeError(f"smalltex: K1 launches differ between renders: "
+                           f"{r['launches']} vs {k1_launches}")
+    log(f"  every one of {r['launches']} K1 launches bit-equal to the plain twin; kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, live share {r['live_share']:.4f}, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return {"seconds": sec, "k1_launches": k1_launches, "k2_launches": bvh_cuda.launches,
+            "k1": r, "cpu_seconds": cpu_sec, "cpu_mean_rel": mean_rel,
+            "cpu_within_1e-3": within}
 
 
 def compile_text(scene_text, out_name, tmp, device):
@@ -1300,8 +1502,8 @@ def render(scene_text, out_name, tmp, extra=()):
 
 def run_photon_phases(tmp, device):
     """[11]-[13], the photon scenes and legs -> dict."""
-    log("[11] rainbowc_const (photonmap + final gather, photonvolume in a rainbow region, "
-        "distant light)")
+    log("[11] rainbowc (photonmap + final gather, photonvolume in a rainbow region, distant "
+        "light; imagemap x scale walls)")
     rainbowc = phase_rainbowc(tmp)
     log("[12] photon legs (bench.py): scattering cube + point light")
     legs = phase_photon_legs(tmp, device)
@@ -1310,7 +1512,23 @@ def run_photon_phases(tmp, device):
     t0 = time.perf_counter()
     benchphoton = phase_benchphoton(tmp, device)
     log(f"  [13] took {time.perf_counter() - t0:.1f} s")
-    return {"rainbowc_const": rainbowc, "photon_legs": legs, "benchphoton": benchphoton}
+    return {"rainbowc": rainbowc, "photon_legs": legs, "benchphoton": benchphoton}
+
+
+def run_texture_phases(tmp):
+    """[14]-[15], the textured scenes -> dict."""
+    log(f"[14] benchtex (bench geometry; mix of marble substrate and copper, uber floor with "
+        f"an image map, dots and a wrinkled bump; path maxdepth 5) {BENCHTEX_RES}x"
+        f"{BENCHTEX_RES}, 1 spp")
+    t0 = time.perf_counter()
+    benchtex = phase_benchtex(tmp)
+    log(f"  [14] took {time.perf_counter() - t0:.1f} s")
+    log(f"[15] small textured scene (translucent, shinymetal, kdsubsurface, measured, imagemap "
+        f"plastic with an fbm bump, alpha-masked quad), card vs CPU")
+    t0 = time.perf_counter()
+    smalltex = phase_smalltex(tmp)
+    log(f"  [15] took {time.perf_counter() - t0:.1f} s")
+    return {"benchtex": benchtex, "smalltex": smalltex}
 
 
 def card_line():
@@ -1469,19 +1687,24 @@ def main():
             f"volume; directlighting maxdepth 5, single scattering, 16 march steps)")
         benchvol = phase_benchvol(tmp)
         photon = run_photon_phases(tmp, device)
+        textured = run_texture_phases(tmp)
 
-    # K1: every launch of the small render, the goldens and rainbowc_const
-    # (set3: 65,536 rays x 4,096 triangles); K2: the three 1024^2 ray sets
-    # in the render's 65,536-ray traversals (sums over every wave; by_set
-    # has each set at both shapes), launches of the bench, benchvol and
-    # benchphoton renders. No single PyTorch call computes either.
+    # K1: every launch of the small render, the goldens, rainbowc and the
+    # small textured scene (set3: 65,536 rays x 4,096 triangles); K2: the
+    # three 1024^2 ray sets in the render's 65,536-ray traversals (sums
+    # over every wave; by_set has each set at both shapes), launches of
+    # the bench, benchvol, benchphoton and benchtex renders. No single
+    # PyTorch call computes either.
     k1["goldens"] = goldens
-    k1["rainbowc_const"] = photon["rainbowc_const"]
+    k1["rainbowc"] = photon["rainbowc"]
+    k1["smalltex"] = textured["smalltex"]
     k1["launches"] += (sum(g["k1_launches"] for g in goldens.values())
-                       + photon["rainbowc_const"]["k1_launches"])
+                       + photon["rainbowc"]["k1_launches"] + textured["smalltex"]["k1_launches"])
     k2["benchvol"] = benchvol
     k2["benchphoton"] = photon["benchphoton"]
-    k2["launches"] += benchvol["k2_launches"] + photon["benchphoton"]["k2_launches"]
+    k2["benchtex"] = textured["benchtex"]
+    k2["launches"] += (benchvol["k2_launches"] + photon["benchphoton"]["k2_launches"]
+                       + textured["benchtex"]["k2_launches"])
     log(f"  photon legs: {json.dumps(photon['photon_legs'])}")
     log(f"  all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [

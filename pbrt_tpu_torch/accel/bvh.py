@@ -4,14 +4,15 @@ Port of the parts of pbrt_tpu/accel/bvh.py the main path runs. The
 binary tree comes from the port's own copy of the reference's native
 C++ builder (csrc/bvh_builder.cpp, byte-identical to the reference's,
 so both packages build the same tree), compiled with g++ into the
-port's build directory; accel/wide_bvh.py then collapses it into
-128-triangle leaf blocks. The dispatch follows the reference's TPU
-branch: scenes with at least WIDE_THRESHOLD triangles use the packet
-pipeline (ops/bvh_cuda.py, kernel K2), smaller ones the flat t-pass
-(ops/intersect_cuda.py, kernel K1); the quadrics are then folded into
-the triangles' result (accel/intersect.py quad_t_pass). A scene without
-triangles folds its quadrics into empty accumulators and runs no
-triangle t-pass.
+port's build directory, over the reference's primitive bounds
+(triangles, then quadric boxes); accel/wide_bvh.py then collapses it
+into 128-triangle leaf blocks, dropping the quadrics from the leaves.
+The dispatch follows the reference's TPU branch: scenes with at least
+WIDE_THRESHOLD triangles use the packet pipeline (ops/bvh_cuda.py,
+kernel K2), smaller ones the flat t-pass (ops/intersect_cuda.py, kernel
+K1); the quadrics are then folded into the triangles' result
+(accel/intersect.py quad_t_pass). A scene without triangles folds its
+quadrics into empty accumulators and runs no triangle t-pass.
 """
 from __future__ import annotations
 
@@ -25,8 +26,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.core.error import PbrtError, info
+from pbrt_tpu_torch.core.error import PbrtError, info, warning
 from pbrt_tpu_torch.core.geometry import Ray
+from pbrt_tpu_torch.core.transform import xform_point_affine
 from pbrt_tpu_torch.accel.intersect import BIG, SceneGeom, quad_t_pass, reconstruct
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -85,15 +87,39 @@ def _tri_bounds(v0, e1, e2):
     return lo.astype(np.float32), hi.astype(np.float32)
 
 
-def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
-              split_method: str = "sah") -> Optional[BVH]:
-    """Binary BVH over triangles (v0, e1, e2) [T, 3] float32."""
+def quad_bounds(quad_o2w: np.ndarray, quad_params: np.ndarray):
+    """World boxes [Q, 3] of the quadrics (the reference's _prim_bounds:
+    the object box [-r, r]^2 x [zmin, zmax] through o2w, corner by
+    corner)."""
+    lo_q = np.zeros((len(quad_params), 3), np.float32)
+    hi_q = np.zeros((len(quad_params), 3), np.float32)
+    for i in range(len(quad_params)):
+        r = abs(float(quad_params[i, 0]))
+        zmin, zmax = float(quad_params[i, 1]), float(quad_params[i, 2])
+        corners = np.array([[x, y, z] for x in (-r, r) for y in (-r, r) for z in (zmin, zmax)])
+        wc = xform_point_affine(quad_o2w[i], corners)
+        lo_q[i] = wc.min(0)
+        hi_q[i] = wc.max(0)
+    return lo_q, hi_q
+
+
+def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, split_method: str = "sah",
+              quads=None) -> Optional[BVH]:
+    """Binary BVH over the triangles (v0, e1, e2) [T, 3] float32, then
+    the quadric boxes `quads` = (lo [Q, 3], hi [Q, 3]) if given: prim ids
+    T.. are the quadrics, as in the reference. An unknown split method
+    warns and builds SAH (the reference's native builder maps it to
+    SAH)."""
     lo, hi = _tri_bounds(v0, e1, e2)
+    if quads is not None and len(quads[0]):
+        lo = np.concatenate([lo, quads[0]]).astype(np.float32)
+        hi = np.concatenate([hi, quads[1]]).astype(np.float32)
     n = len(lo)
     if n == 0:
         return None
     if split_method not in ("sah", "middle", "equal", "aac"):
-        raise PbrtError(f'BVH split method "{split_method}" unknown')
+        warning(f'BVH split method "{split_method}" unknown; using "sah"')
+        split_method = "sah"
     lib = _load_native()
     method_id = {"sah": 0, "middle": 1, "equal": 2, "aac": 3}[split_method]
     max_nodes = max(16, 4 * n)
@@ -166,7 +192,9 @@ def make_accel(geom: SceneGeom, split_method: str = "sah", force: str = "") -> B
         from pbrt_tpu_torch.accel.wide_bvh import build_wide_bvh
 
         v0, e1, e2 = (x.cpu().numpy() for x in (geom.tri_v0, geom.tri_e1, geom.tri_e2))
-        narrow = build_bvh(v0, e1, e2, split_method)
+        quads = (quad_bounds(geom.quad_o2w.cpu().numpy(), geom.quad_params.cpu().numpy())
+                 if geom.n_quads > 0 else None)
+        narrow = build_bvh(v0, e1, e2, split_method, quads)
         return BvhScene(geom=geom, wide=build_wide_bvh(narrow, v0, e1, e2, geom.tri_v0.device))
     if geom.n_tris == 0:
         return BvhScene(geom=geom)

@@ -12,18 +12,26 @@ WideBVH and VolumeT.
 A photon context (the maps and settings of pbrt_tpu's PhotonCtx) comes
 across by `photon_ctx_from_arrays`, with the JAX package's map layout
 ([P, 4] packed rows, [S, P] spectra) turned into this package's.
+
+Shading inputs come across the same way: a hit batch and a ShadingGeom
+from arrays (`hit_from_arrays`, `shading_geom_from_arrays`), material
+records from arrays and back (`bsdf_from_arrays`, `tuple_to_arrays`:
+BsdfParams or Lobes with their mix child under "mix2." and the
+measured tables under "meas_tables").
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.accel.intersect import SceneGeom
+from pbrt_tpu_torch.accel.intersect import Hit, SceneGeom
 from pbrt_tpu_torch.accel.wide_bvh import WideBVH
 from pbrt_tpu_torch.core.sampling import Distribution1D
 from pbrt_tpu_torch.lights.lighting import LightsT
+from pbrt_tpu_torch.materials.bsdf import BsdfParams
 from pbrt_tpu_torch.photon.map import PhotonMap, RadianceMap
 from pbrt_tpu_torch.photon.shooter import PhotonCtx
+from pbrt_tpu_torch.textures.registry import ShadingGeom
 from pbrt_tpu_torch.volumes.registry import VolumeT
 
 GEOM_FIELDS = {
@@ -139,3 +147,58 @@ def photon_ctx_from_arrays(arrays: dict, device) -> PhotonCtx:
     maps = [photon_map_from_arrays(arrays, m, device) for m in PHOTON_MAPS]
     settings = {k: np.asarray(arrays[f"ctx.{k}"]).item() for k in PHOTON_SETTINGS}
     return PhotonCtx(*maps, **settings)
+
+
+HIT_INT_FIELDS = ("mat", "light", "prim")
+
+
+def hit_from_arrays(arrays: dict, device, prefix: str = "hit") -> Hit:
+    """A hit batch from arrays["<prefix>.<field>"] with the field names of
+    pbrt_tpu's Hit (valid, t, p, ng, ns, uv, dpdu, mat, light, prim)."""
+    def t(f):
+        dt = (torch.bool if f == "valid" else torch.int64 if f in HIT_INT_FIELDS
+              else torch.float32)
+        return torch.tensor(np.asarray(arrays[f"{prefix}.{f}"]), dtype=dt, device=device)
+
+    return Hit(*(t(f) for f in Hit._fields))
+
+
+def shading_geom_from_arrays(arrays: dict, device, prefix: str = "sg") -> ShadingGeom:
+    """A ShadingGeom from arrays["<prefix>.<field>"] (p, uv, dpdx, dpdy,
+    duvdx, duvdy)."""
+    return ShadingGeom(*(torch.tensor(np.asarray(arrays[f"{prefix}.{f}"]), dtype=torch.float32,
+                                      device=device) for f in ShadingGeom._fields))
+
+
+def tuple_to_arrays(obj, prefix: str) -> dict:
+    """Flatten a NamedTuple of arrays (BsdfParams, Lobes, BsdfSample or a
+    Frame, of either package) to "<prefix>.<field>" NumPy arrays; a
+    nested tuple (the mix child) goes under "<prefix>.<field>.", fields
+    left at None are left out."""
+    out = {}
+    for f, v in obj._asdict().items():
+        if v is None:
+            continue
+        if hasattr(v, "_asdict"):
+            out.update(tuple_to_arrays(v, f"{prefix}.{f}"))
+        else:
+            out[f"{prefix}.{f}"] = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def bsdf_from_arrays(arrays: dict, device, prefix: str = "params") -> BsdfParams:
+    """BsdfParams from tuple_to_arrays' keys (the JAX package's material
+    records): kind and meas_id become int64, the mix child is rebuilt
+    from "<prefix>.mix2." keys."""
+    kw = {}
+    for f in BsdfParams._fields:
+        key = f"{prefix}.{f}"
+        if f == "mix2":
+            kw[f] = (bsdf_from_arrays(arrays, device, key)
+                     if f"{key}.kind" in arrays else None)
+        elif key in arrays:
+            dt = torch.int64 if f in ("kind", "meas_id") else torch.float32
+            kw[f] = torch.tensor(np.asarray(arrays[key]), dtype=dt, device=device)
+        else:
+            kw[f] = None
+    return BsdfParams(**kw)

@@ -79,7 +79,9 @@ _ILLUM_SCALE = 0.86445
 @functools.lru_cache(maxsize=None)
 def _const(name: str, device) -> torch.Tensor:
     """float32 device copy of a module constant (cached per device)."""
-    table = {"S2XYZ_T": _S2XYZ.T, "Y": _S2XYZ[1], "LAMBDAS_SPLIT": LAMBDAS_SPLIT}
+    table = {"S2XYZ_T": _S2XYZ.T, "Y": _S2XYZ[1], "LAMBDAS_SPLIT": LAMBDAS_SPLIT,
+             "BASIS_reflectance": _REFL_BASIS * _REFL_SCALE,
+             "BASIS_illuminant": _ILLUM_BASIS * _ILLUM_SCALE}
     return torch.as_tensor(np.ascontiguousarray(table[name], np.float32), device=device)
 
 
@@ -99,39 +101,50 @@ def y(s):
     return s @ _S2XYZ[1]
 
 
-def _smits_coeffs(rgb):
+def _smits_coeffs(rgb, xp):
     """Basis-mixing coefficients [..., 7] of the reference's FromRGB
     (core/spectrum.cpp:154-243): white gets the min channel, one
     secondary (cyan/magenta/yellow) the mid-min span, one primary the
-    max-mid span. Branch precedence (ties) matches the C++ if-chain."""
+    max-mid span. Branch precedence (ties) matches the C++ if-chain.
+    xp is numpy or torch."""
     r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
     r_min = (r <= g) & (r <= b)
     g_min = ~r_min & (g <= r) & (g <= b)
     b_min = ~r_min & ~g_min
-    zero = np.zeros_like(r)
-    white = np.where(r_min, r, np.where(g_min, g, b))
-    cyan = np.where(r_min, np.where(g <= b, g - r, b - r), zero)
-    magenta = np.where(g_min, np.where(r <= b, r - g, b - g), zero)
-    yellow = np.where(b_min, np.where(r <= g, r - b, g - b), zero)
-    blue = (np.where(r_min & (g <= b), b - g, zero)
-            + np.where(g_min & (r <= b), b - r, zero))
-    green = (np.where(r_min & (g > b), g - b, zero)
-             + np.where(b_min & (r <= g), g - r, zero))
-    red = (np.where(g_min & (r > b), r - b, zero)
-           + np.where(b_min & (r > g), r - g, zero))
-    return np.stack([white, cyan, magenta, yellow, red, green, blue], -1)
+    zero = xp.zeros_like(r)
+    white = xp.where(r_min, r, xp.where(g_min, g, b))
+    cyan = xp.where(r_min, xp.where(g <= b, g - r, b - r), zero)
+    magenta = xp.where(g_min, xp.where(r <= b, r - g, b - g), zero)
+    yellow = xp.where(b_min, xp.where(r <= g, r - b, g - b), zero)
+    blue = (xp.where(r_min & (g <= b), b - g, zero)
+            + xp.where(g_min & (r <= b), b - r, zero))
+    green = (xp.where(r_min & (g > b), g - b, zero)
+             + xp.where(b_min & (r <= g), g - r, zero))
+    red = (xp.where(g_min & (r > b), r - b, zero)
+           + xp.where(b_min & (r > g), r - g, zero))
+    return xp.stack([white, cyan, magenta, yellow, red, green, blue], -1)
 
 
 def from_rgb(rgb, kind: str = "reflectance"):
-    """RGB [..., 3] -> spectrum [..., 30] (host, NumPy) via the
-    reference's Smits-style basis mixing (SampledSpectrum::FromRGB).
-    NOT an exact round-trip: the basis desaturates slightly, identically
-    to pbrt."""
+    """RGB [..., 3] -> spectrum [..., 30] via the reference's Smits-style
+    basis mixing (SampledSpectrum::FromRGB). NOT an exact round-trip:
+    the basis desaturates slightly, identically to pbrt. A float32
+    tensor stays on its device (textures evaluated per hit); anything
+    else is converted on the host in float64."""
     basis = _REFL_BASIS if kind == "reflectance" else _ILLUM_BASIS
     scale = _REFL_SCALE if kind == "reflectance" else _ILLUM_SCALE
+    if isinstance(rgb, torch.Tensor):
+        c = _smits_coeffs(rgb, torch)
+        return torch.clamp(c @ _const(f"BASIS_{kind}", rgb.device), min=0.0)
     rgb = np.asarray(rgb, np.float64)
-    c = _smits_coeffs(rgb)
+    c = _smits_coeffs(rgb, np)
     return np.clip(c @ (basis * scale), 0.0, None).astype(np.float32)
+
+
+def to_rgb(s: np.ndarray) -> np.ndarray:
+    """Spectrum [..., 30] -> linear RGB [..., 3] (host, NumPy)."""
+    return s @ S2RGB.T
+
 
 def from_sampled(lambdas, values) -> np.ndarray:
     """Piecewise-linear SPD samples -> binned spectrum (host, NumPy).

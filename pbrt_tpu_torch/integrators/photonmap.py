@@ -121,7 +121,8 @@ def li_photonmap(scene, ctx, ray: Ray, pixel, sidx, max_depth: int = 5, seed: in
         # specular-only recursion (SpecularReflect / SpecularTransmit)
         bs = bsdf_sample(lobes, frame, wo, iu(pixel, sidx, depth, 4, seed),
                          iu(pixel, sidx, depth, 5, seed), iu(pixel, sidx, depth, 6, seed),
-                         lam_nm=st.lam_nm)
+                         iu(pixel, sidx, depth, 7, seed), lam_nm=st.lam_nm,
+                         u_pick=iu(pixel, sidx, depth, 8, seed))
         cos_i = torch.abs(dot(bs.wi, frame.ns))
         tp_new = st.throughput * bs.f * (cos_i / torch.clamp(bs.pdf, min=1e-12))[..., None]
         alive = alive & bs.valid & bs.is_specular & ~spec.is_black(tp_new)
@@ -181,7 +182,9 @@ def _final_gather(scene, ctx, lobes, frame, p, wo, pixel, sidx, depth, seed, sha
         # samples BSDF_ALL & ~BSDF_SPECULAR, so specular picks are dropped
         bs = bsdf_sample(lobes, frame, wo, iu(pixel, sidx, depth, 50 + 8 * g, seed),
                          iu(pixel, sidx, depth, 51 + 8 * g, seed),
-                         iu(pixel, sidx, depth, 52 + 8 * g, seed))
+                         iu(pixel, sidx, depth, 52 + 8 * g, seed),
+                         iu(pixel, sidx, depth, 53 + 8 * g, seed),
+                         u_pick=iu(pixel, sidx, depth, 57 + 8 * g, seed))
         ok1 = bs.valid & ~bs.is_specular & (bs.pdf > 1e-9) & ~spec.is_black(bs.f)
         Lind1, hit1 = shade_gather_hit(bs.wi, shade & ok1)
         wt1 = power_heuristic(n_g, bs.pdf, n_g, photon_pdf_of(bs.wi))

@@ -44,6 +44,13 @@ BIG = 1e30
 RAY_EPS = 1e-3
 
 
+def shading_frame(scene, hit: Hit) -> Frame:
+    """make_frame + bump mapping when the scene uses bump textures."""
+    from pbrt_tpu_torch.scene.compile import eval_bump
+
+    return eval_bump(scene, hit, make_frame(hit))
+
+
 def make_frame(hit: Hit) -> Frame:
     ss = normalize(hit.dpdu)
     # re-orthogonalize against ns
@@ -179,7 +186,7 @@ def _li_path_impl(scene, ray: Ray, u_fn, max_depth: int, rr_start: int, transmit
             break
 
         lobes = material_lobes(eval_bsdf_params(scene, hit))
-        frame = make_frame(hit)
+        frame = shading_frame(scene, hit)
         wo = -normalize(st.ray_d)
 
         # direct lighting at non-specular vertices
@@ -203,7 +210,8 @@ def _li_path_impl(scene, ray: Ray, u_fn, max_depth: int, rr_start: int, transmit
         lam_cand = torch.where(need_lambda, new_lam, st.lam_nm)
 
         bs = bsdf_sample(lobes, frame, wo, u_fn(depth, 4), u_fn(depth, 5),
-                         u_fn(depth, 6), lam_nm=lam_cand)
+                         u_fn(depth, 6), u_fn(depth, 7), lam_nm=lam_cand,
+                         u_pick=u_fn(depth, 9))
         commit_lambda = need_lambda & bs.did_transmit
         tp = torch.where(commit_lambda[..., None], st.throughput * oh * bin_w[..., None],
                          st.throughput)
@@ -280,7 +288,7 @@ def _li_direct_or_whitted(scene, ray, pixel, sidx, max_depth, seed, strategy,
         if depth == max_depth:
             break
         lobes = material_lobes(eval_bsdf_params(scene, hit))
-        frame = make_frame(hit)
+        frame = shading_frame(scene, hit)
         wo = -normalize(st.ray_d)
 
         Ld = torch.zeros((N, S), device=dev)
@@ -304,10 +312,10 @@ def _li_direct_or_whitted(scene, ray, pixel, sidx, max_depth, seed, strategy,
                                      time=tm)
         st = st._replace(L=st.L + st.throughput * Ld * alive[..., None])
 
-        # specular continuation only (the reference's u3, dimension 7,
-        # drives sub-lobe choices of kinds not yet ported)
+        # specular continuation only (no u_pick: mix lanes fall back to
+        # the scramble of u_lobe, as in the JAX package)
         bs = bsdf_sample(lobes, frame, wo, u(depth, 4), u(depth, 5), u(depth, 6),
-                         lam_nm=st.lam_nm)
+                         u(depth, 7), lam_nm=st.lam_nm)
         cos_i = torch.abs(dot(bs.wi, frame.ns))
         tp_new = st.throughput * bs.f * (cos_i / torch.clamp(bs.pdf, min=1e-12))[..., None]
         alive = alive & bs.valid & bs.is_specular & ~spec.is_black(tp_new)

@@ -1,7 +1,6 @@
 """Material factory: plugin name + TextureParams -> MaterialRecord.
 
-Port of pbrt_tpu/materials/registry.py (host code, carried over; the
-"measured" kind needs the BRDF loader, which is not yet ported).
+Port of pbrt_tpu/materials/registry.py (host code, carried over).
 
 Replaces reference core/api.cpp:364-415 MakeMaterial dispatch and each
 materials/*.cpp CreateMaterial factory, preserving parameter names and
@@ -15,7 +14,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from pbrt_tpu_torch.core import spectrum as spec
-from pbrt_tpu_torch.core.error import PbrtError, warning
+from pbrt_tpu_torch.core.error import warning
 from pbrt_tpu_torch.scene.records import MaterialRecord
 
 # copper n/k sampled spectra for "metal" defaults (reference
@@ -103,7 +102,19 @@ def make_material(name: str, tp, named_materials: Dict[str, MaterialRecord]) -> 
         t["amount"] = tp.get_spectrum_texture("amount", np.float32(0.5))
         rec.children = (m1, m2)
     elif name == "measured":
-        raise PbrtError('not yet ported: material "measured"')
+        fn = tp.find_filename("filename", "")
+        rec.textures["bumpmap"] = tp.get_float_texture_or_none("bumpmap")
+        loaded = None
+        if fn:
+            from pbrt_tpu_torch.materials.measured import load_measured
+
+            loaded = load_measured(fn)
+        if loaded is None:
+            rec.spectra["albedo"] = _measured_albedo(fn)
+        else:
+            table, albedo = loaded
+            rec.spectra["merl"] = table
+            rec.spectra["albedo"] = albedo
     elif name in ("subsurface", "kdsubsurface"):
         # BSSRDF materials: record scattering properties; surface BSDF is a
         # fresnel-weighted specular (reference materials/subsurface.cpp).
@@ -129,6 +140,15 @@ def make_material(name: str, tp, named_materials: Dict[str, MaterialRecord]) -> 
         return make_material("matte", tp, named_materials)
     tp.report_unused(f'in material "{name}"')
     return rec
+
+
+def _measured_albedo(fn: str) -> np.ndarray:
+    """Fallback albedo when the measured file is missing/unreadable
+    (reference materials/measured.cpp:215 errors; the JAX package
+    degrades to grey, and so does this one)."""
+    warning(f'measured material "{fn}": could not load BRDF data; '
+            "using grey lambertian")
+    return np.full(spec.N_BINS, 0.5, np.float32)
 
 
 # Jensen et al. 2001 measured media (subset; reference core/volume.cpp

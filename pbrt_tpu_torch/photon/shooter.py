@@ -220,7 +220,7 @@ def shoot_batch_fn(scene, max_depth: int, has_volume: bool):
             # BSDF continuation
             frame = make_frame(hit)
             bs = bsdf_sample(lobes, frame, -normalize(ray_d), u(depth, 31), u(depth, 32),
-                             u(depth, 33), lam_nm=lam_nm)
+                             u(depth, 33), u(depth, 34), lam_nm=lam_nm, u_pick=u(depth, 38))
             cos_i = torch.abs(dot(bs.wi, frame.ns))
             anew = alpha * bs.f * (cos_i / torch.clamp(bs.pdf, min=1e-12))[..., None]
             # Russian roulette on the throughput ratio (:214-224)

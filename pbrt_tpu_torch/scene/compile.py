@@ -1,15 +1,16 @@
 """Scene compiler: host records -> device tensors.
 
 Port of the slice of pbrt_tpu/scene/compile.py the ported paths need:
-triangle meshes and quadrics, point, spot, distant and diffuse area
-lights (on meshes and quadrics), volume regions, and the matte, plastic, mirror and glass
-materials with constant textures. Everything else a scene may use that
-the JAX package knows fails here with "not yet ported: <name>" — the
-compiler never substitutes something else.
+triangle meshes and quadrics with alpha masks, point, spot, distant and
+diffuse area lights (on meshes and quadrics), volume regions, every
+material kind with any texture, measured BRDF tables, and bump mapping.
+Everything else a scene may use that the JAX package knows fails here
+with "not yet ported: <name>" — the compiler never substitutes
+something else.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -19,13 +20,14 @@ from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.error import PbrtError, info, warning
 from pbrt_tpu_torch.core.sampling import Distribution1D
 from pbrt_tpu_torch.core.transform import Transform, xform_point_affine
-from pbrt_tpu_torch.accel.intersect import SceneGeom, make_quad_pack, make_tri_pack
+from pbrt_tpu_torch.core.geometry import Ray, cross, normalize
+from pbrt_tpu_torch.accel.intersect import Hit, SceneGeom, make_quad_pack, make_tri_pack
 from pbrt_tpu_torch.lights.lighting import L_AREA, L_DISTANT, L_POINT, L_SPOT, LightsT
-from pbrt_tpu_torch.materials.bsdf import PORTED_KINDS, BsdfParams
+from pbrt_tpu_torch.materials.bsdf import BsdfParams
 from pbrt_tpu_torch.materials.registry import KIND_ID
 from pbrt_tpu_torch.scene.records import MaterialRecord, RenderOptions, ShapeRecord
 from pbrt_tpu_torch.shapes.registry import QUAD_SPHERE, make_shape, tessellate_quadric
-from pbrt_tpu_torch.textures.registry import ConstantTexture
+from pbrt_tpu_torch.textures.registry import ShadingGeom
 from pbrt_tpu_torch.volumes.registry import VolumeT, build_volumes
 
 S = spec.N_BINS
@@ -54,17 +56,66 @@ class CompiledScene:
     world_hi: np.ndarray
     accel: object = None                   # accel.bvh.BvhScene
     volume: Optional[VolumeT] = None
+    meas_tables: object = None             # [T,TH,TD,PD,3] measured BRDFs
+    meas_index: dict = field(default_factory=dict)  # id(material) -> table row
+    alpha_textures: list = field(default_factory=list)  # alpha masks (texture or float)
+    tri_alpha: object = None               # [T] int64 row of alpha_textures (-1 none)
+
+    # how many alpha-masked layers a single ray can punch through
+    # (the reference's recursive skip is unbounded; 4 covers real scenes)
+    ALPHA_LAYERS = 4
 
     @property
     def n_lights(self) -> int:
         return 0 if self.lights is None else int(self.lights.kind.shape[0])
 
+    def _alpha_of(self, hit: Hit):
+        """[R] alpha at each hit (1.0 for prims with no alpha texture).
+        Reference shapes/trianglemesh.cpp:379-437: alpha evaluated at the
+        hit's differential geometry; 0 means the hit is discarded."""
+        T = self.geom.n_tris
+        is_tri = hit.valid & (hit.prim >= 0) & (hit.prim < max(T, 1))
+        ai = torch.where(is_tri, self.tri_alpha[torch.clamp(hit.prim, 0, max(T - 1, 0))],
+                         torch.full((), -1, dtype=torch.int64, device=hit.t.device))
+        a = torch.ones(hit.t.shape, device=hit.t.device)
+        sg = ShadingGeom.at(hit.p, hit.uv)
+        for k, tex in enumerate(self.alpha_textures):
+            if isinstance(tex, float):
+                v = torch.full_like(a, tex)
+            else:
+                v = tex.eval(sg).to(torch.float32).expand(a.shape)
+            a = torch.where(ai == k, v, a)
+        return a
+
+    def _intersect_alpha(self, ray: Ray, coherent=False):
+        """Closest hit skipping alpha == 0 surfaces: a bounded re-trace
+        with tmin advanced past each masked hit. Each re-trace carries
+        only the masked rays (the others get an empty interval and keep
+        their hit)."""
+        hit = self.accel.intersect(ray, coherent=coherent)
+        tmin = ray.tmin
+        empty = torch.full((), -1.0, device=ray.o.device)
+        for _ in range(self.ALPHA_LAYERS):
+            masked = hit.valid & (self._alpha_of(hit) <= 0.0)
+            tmin = torch.where(masked, hit.t * (1.0 + 1e-4) + 1e-5, tmin)
+            hit2 = self.accel.intersect(
+                Ray(ray.o, ray.d, tmin, torch.where(masked, ray.tmax, empty), ray.time),
+                coherent=coherent)
+            hit = Hit(*(torch.where(masked.reshape(masked.shape + (1,) * (a.dim() - 1)), a, b)
+                        for a, b in zip(hit2, hit)))
+        return hit
+
     def intersect(self, ray, coherent=False):
         """coherent: the batch is beam-like (camera or shadow rays);
         selects the cheaper frustum cull. Only performance changes."""
+        if self.alpha_textures and self.tri_alpha is not None:
+            return self._intersect_alpha(ray, coherent=coherent)
         return self.accel.intersect(ray, coherent=coherent)
 
     def intersect_p(self, ray, coherent=False):
+        # alpha scenes: the closest-hit loop, as in the JAX package
+        if self.alpha_textures and self.tri_alpha is not None:
+            return self._intersect_alpha(ray, coherent=coherent).valid
         return self.accel.intersect_p(ray, coherent=coherent)
 
 
@@ -74,22 +125,9 @@ def _material_index(mat: Optional[MaterialRecord], materials: List[MaterialRecor
         return -1
     key = id(mat)
     if key not in index:
-        _check_material(mat)
         index[key] = len(materials)
         materials.append(mat)
     return index[key]
-
-
-def _check_material(mat: MaterialRecord):
-    if mat.kind not in PORTED_KINDS:
-        not_ported(f'material "{mat.kind}"')
-    for slot, tex in mat.textures.items():
-        if tex is None:
-            continue
-        if slot == "bumpmap":
-            not_ported(f'bump mapping (material "{mat.kind}")')
-        if not isinstance(tex, ConstantTexture):
-            not_ported(f'non-constant texture for "{slot}" of material "{mat.kind}"')
 
 
 def _check_options(ro: RenderOptions):
@@ -109,7 +147,9 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
 
     tri_v0, tri_e1, tri_e2 = [], [], []
     tri_n, tri_has_n, tri_uv = [], [], []
-    tri_mat, tri_light = [], []
+    tri_mat, tri_light, tri_alpha = [], [], []
+    alpha_textures: list = []          # unique alpha textures/constants
+    alpha_index: Dict[int, int] = {}   # id(tex) -> row
     quads = []  # (QuadricData, mat, light)
 
     # Area lights get one LightsT row per emitting shape record.
@@ -119,13 +159,19 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
     def add_shape_record(srec: ShapeRecord, extra_xform: Optional[Transform] = None):
         if srec.animated is not None:
             not_ported("motion blur (animated transform)")
-        if srec.alpha_tex is not None:
-            not_ported("alpha masks")
         o2w = srec.o2w if extra_xform is None else (extra_xform * srec.o2w)
         sd = make_shape(srec.kind, srec.params, o2w, o2w.inverse(), srec.reverse_orientation)
         if sd is None:
             return
         mi = _material_index(srec.material, materials, mat_index)
+        # alpha-texture masking row (reference trianglemesh.cpp:379-437)
+        ai = -1
+        if srec.alpha_tex is not None:
+            key = id(srec.alpha_tex)
+            if key not in alpha_index:
+                alpha_index[key] = len(alpha_textures)
+                alpha_textures.append(srec.alpha_tex)
+            ai = alpha_index[key]
         li = -1
         if srec.area_light is not None:
             p = srec.area_light.params
@@ -161,6 +207,7 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
                 tri_uv.append(np.tile(default_uv[None], (len(idx), 1, 1)))
             tri_mat.append(np.full(len(idx), mi, np.int32))
             tri_light.append(np.full(len(idx), li, np.int32))
+            tri_alpha.append(np.full(len(idx), ai, np.int64))
             if li >= 0:
                 e1, e2 = v1 - v0, v2 - v0
                 areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
@@ -277,9 +324,18 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
         accel_name = "bvh"
     split = ro.accelerator_params.find_one_string("splitmethod", "sah")
     accel = make_accel(geom, split, force="flat" if accel_name == "none" else "")
+    # stack the measured half-angle BRDF tables (materials/measured.py);
+    # each measured material gets a row of the [T,TH,TD,PD,3] stack
+    merl = [m for m in materials if m.kind == "measured" and "merl" in m.spectra]
+    meas_index = {id(m): i for i, m in enumerate(merl)}
+    meas_tables = dev(np.stack([m.spectra["merl"] for m in merl])) if merl else None
     return CompiledScene(geom=geom, lights=lights, light_dist=light_dist,
                          materials=materials, material_dispersive=dev(disp),
-                         world_lo=world_lo, world_hi=world_hi, accel=accel, volume=volume)
+                         world_lo=world_lo, world_hi=world_hi, accel=accel, volume=volume,
+                         meas_tables=meas_tables, meas_index=meas_index,
+                         alpha_textures=alpha_textures,
+                         tri_alpha=(dev(np.concatenate(tri_alpha))
+                                    if alpha_textures and tri_alpha else None))
 
 
 def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area,
@@ -385,64 +441,184 @@ def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area,
     return lights, Distribution1D.make(dev(pw, torch.float32))
 
 
+
+
 # ---------------------------------------------------------------------------
 # Shading-time material evaluation
 
+_SCALAR_SLOTS = ("rough_u", "rough_v", "eta", "vn", "sigma")
+
+
+def _merge(sel, p: BsdfParams, old: BsdfParams) -> BsdfParams:
+    """Lanes `sel` take p's slots, the others keep old's (mix children
+    and amount included)."""
+    merged = old._replace(
+        kind=torch.where(sel, p.kind, old.kind),
+        **{f: torch.where(sel[:, None], getattr(p, f), getattr(old, f))
+           for f in ("kd", "ks", "kr", "kt", "opacity")},
+        **{f: torch.where(sel, getattr(p, f), getattr(old, f)) for f in _SCALAR_SLOTS})
+    if old.mix2 is not None:
+        merged = merged._replace(mix2=_merge(sel, p.mix2, old.mix2),
+                                 mix_amt=torch.where(sel[:, None], p.mix_amt, old.mix_amt))
+    return merged
+
+
 def eval_bsdf_params(scene: CompiledScene, hit) -> BsdfParams:
-    """Per-hit BsdfParams from the unique-material list, masked select."""
+    """Per-hit BsdfParams from the unique-material list, masked select.
+    Texture graphs are evaluated over the whole batch at the hits'
+    (p, uv), with zero differentials (ShadingGeom.at)."""
     H = hit.p.shape[0]
-    out = BsdfParams.none(H, hit.p.device)
+    dev = hit.p.device
+    sg = ShadingGeom.at(hit.p, hit.uv)
+    out = BsdfParams.none(H, dev)
+    has_mix = any(m.kind == "mix" for m in scene.materials)
+    if has_mix:
+        out = out._replace(mix2=BsdfParams.none(H, dev), mix_amt=torch.ones((H, S), device=dev))
+    meas_id = torch.full((H,), -1, dtype=torch.int64, device=dev)
     for mi, mat in enumerate(scene.materials):
         sel = hit.mat == mi
-        p = _lower_material(mat, H, hit.p.device)
-        out = BsdfParams(*(torch.where(sel.reshape((H,) + (1,) * (a.dim() - 1)), a, b)
-                           for a, b in zip(p, out)))
+        p = _lower_material(mat, sg, H)
+        if has_mix and p.mix2 is None:
+            # non-mix materials in a mix scene: amount 1 routes all the
+            # weight to the first constituent
+            p = p._replace(mix2=BsdfParams.none(H, dev), mix_amt=torch.ones((H, S), device=dev))
+        out = _merge(sel, p, out)
+        if id(mat) in scene.meas_index:
+            meas_id = torch.where(sel, torch.full((), scene.meas_index[id(mat)],
+                                                  dtype=torch.int64, device=dev), meas_id)
+    if scene.meas_tables is not None:
+        out = out._replace(meas_id=meas_id, meas_tables=scene.meas_tables)
     return out
 
 
-def _tex_spec(mat, name, H, device, default=0.0):
+def _tex_spec(mat, name, sg, H, default=0.0):
     tex = mat.textures.get(name)
     if tex is None:
-        return torch.full((H, S), default, device=device)
-    v = torch.as_tensor(tex.value, dtype=torch.float32, device=device)
-    if v.dim() == 0:
-        return torch.full((H, S), float(v), device=device)
+        return torch.full((H, S), default, device=sg.p.device)
+    v = tex.eval(sg).to(torch.float32)
+    if v.dim() == 1:       # a float texture (or scalar constant) in a spectral slot
+        v = v[:, None]
     return v.expand(H, S)
 
 
-def _tex_float(mat, name, H, device, default=0.0):
+def _tex_float(mat, name, sg, H, default=0.0):
     tex = mat.textures.get(name)
-    value = default if tex is None else float(tex.value)
-    return torch.full((H,), value, device=device)
+    if tex is None:
+        return torch.full((H,), default, device=sg.p.device)
+    return tex.eval(sg).to(torch.float32).expand(H)
 
 
-def _lower_material(mat: MaterialRecord, H: int, device) -> BsdfParams:
-    """One material record -> BsdfParams slots (see bsdf.material_lobes
+def _lower_material(mat: MaterialRecord, sg: ShadingGeom, H: int) -> BsdfParams:
+    """One material record -> full BsdfParams slots (see bsdf.material_lobes
     for the slot-per-kind conventions)."""
     kind = mat.kind
-    zs = torch.zeros((H, S), device=device)
-    zf = torch.zeros((H,), device=device)
+    dev = sg.p.device
+    zs = torch.zeros((H, S), device=dev)
+    zf = torch.zeros((H,), device=dev)
     kd = ks = kr = kt = zs
-    rough_u = zf
-    eta = torch.full((H,), 1.5, device=device)
-    vn = zf
-    sigma = zf
+    opacity = torch.ones((H, S), device=dev)
+    rough_u = rough_v = zf
+    eta = torch.full((H,), 1.5, device=dev)
+    vn = sigma = zf
+
+    def const_spec(name):
+        return torch.as_tensor(mat.spectra[name], device=dev).expand(H, S)
+
     if kind == "matte":
-        kd = _tex_spec(mat, "Kd", H, device, 0.5)
-        sigma = _tex_float(mat, "sigma", H, device, 0.0)
+        kd = _tex_spec(mat, "Kd", sg, H, 0.5)
+        sigma = _tex_float(mat, "sigma", sg, H, 0.0)
     elif kind == "plastic":
-        kd = _tex_spec(mat, "Kd", H, device, 0.25)
-        ks = _tex_spec(mat, "Ks", H, device, 0.25)
-        rough_u = _tex_float(mat, "roughness", H, device, 0.1)
+        kd = _tex_spec(mat, "Kd", sg, H, 0.25)
+        ks = _tex_spec(mat, "Ks", sg, H, 0.25)
+        rough_u = rough_v = _tex_float(mat, "roughness", sg, H, 0.1)
+    elif kind == "translucent":
+        kd = _tex_spec(mat, "Kd", sg, H, 0.25)
+        ks = _tex_spec(mat, "Ks", sg, H, 0.25)
+        kr = _tex_spec(mat, "reflect", sg, H, 0.5)
+        kt = _tex_spec(mat, "transmit", sg, H, 0.5)
+        rough_u = rough_v = _tex_float(mat, "roughness", sg, H, 0.1)
     elif kind == "glass":
-        kr = _tex_spec(mat, "Kr", H, device, 1.0)
-        kt = _tex_spec(mat, "Kt", H, device, 1.0)
-        eta = _tex_float(mat, "index", H, device, 1.5)
-        vn = torch.full((H,), mat.consts.get("Vn", 0.0), device=device)
+        kr = _tex_spec(mat, "Kr", sg, H, 1.0)
+        kt = _tex_spec(mat, "Kt", sg, H, 1.0)
+        eta = _tex_float(mat, "index", sg, H, 1.5)
+        vn = torch.full((H,), mat.consts.get("Vn", 0.0), device=dev)
     elif kind == "mirror":
-        kr = _tex_spec(mat, "Kr", H, device, 0.9)
-    else:
-        not_ported(f'material "{kind}"')
-    return BsdfParams(kind=torch.full((H,), KIND_ID[kind], dtype=torch.int64, device=device),
-                      kd=kd, ks=ks, kr=kr, kt=kt, rough_u=rough_u, eta=eta, vn=vn,
-                      sigma=sigma)
+        kr = _tex_spec(mat, "Kr", sg, H, 0.9)
+    elif kind == "metal":
+        kd = const_spec("eta")
+        ks = const_spec("k")
+        rough_u = rough_v = _tex_float(mat, "roughness", sg, H, 0.01)
+    elif kind == "substrate":
+        kd = _tex_spec(mat, "Kd", sg, H, 0.5)
+        ks = _tex_spec(mat, "Ks", sg, H, 0.5)
+        rough_u = _tex_float(mat, "uroughness", sg, H, 0.1)
+        rough_v = _tex_float(mat, "vroughness", sg, H, 0.1)
+    elif kind == "uber":
+        kd = _tex_spec(mat, "Kd", sg, H, 0.25)
+        ks = _tex_spec(mat, "Ks", sg, H, 0.25)
+        kr = _tex_spec(mat, "Kr", sg, H, 0.0)
+        kt = _tex_spec(mat, "Kt", sg, H, 0.0)
+        opacity = _tex_spec(mat, "opacity", sg, H, 1.0)
+        rough_u = rough_v = _tex_float(mat, "roughness", sg, H, 0.1)
+        eta = _tex_float(mat, "index", sg, H, 1.5)
+    elif kind == "shinymetal":
+        ks = _tex_spec(mat, "Ks", sg, H, 1.0)
+        kr = _tex_spec(mat, "Kr", sg, H, 1.0)
+        rough_u = rough_v = _tex_float(mat, "roughness", sg, H, 0.1)
+    elif kind == "measured":
+        kd = const_spec("albedo")
+    elif kind in ("subsurface", "kdsubsurface"):
+        kr = _tex_spec(mat, "Kr", sg, H, 1.0)
+        eta = torch.full((H,), mat.consts.get("index", 1.3), device=dev)
+    elif kind == "mix":
+        # two-constituent mix (reference materials/mixmat.cpp:62): both
+        # children lowered to full slot sets, blended by the spectral
+        # amount in materials/bsdf.py. Nested mixes flatten to their
+        # first constituent, as in the JAX package.
+        m1, m2 = mat.children
+        if any(getattr(c, "kind", None) == "mix" for c in (m1, m2)):
+            warning("nested mix materials flatten to their first "
+                    "constituent (mix(mix(a,b),c) renders as mix(a,c)); "
+                    "the reference recursively concatenates ScaledBxDFs")
+        amt = _tex_spec(mat, "amount", sg, H, 0.5)
+        p1 = _lower_material(m1, sg, H)
+        p2 = _lower_material(m2, sg, H)._replace(mix2=None, mix_amt=None)
+        return p1._replace(mix2=p2, mix_amt=torch.clamp(amt, 0.0, 1.0))
+
+    kid = KIND_ID.get(kind, KIND_ID["matte"])
+    return BsdfParams(kind=torch.full((H,), kid, dtype=torch.int64, device=dev),
+                      kd=kd, ks=ks, kr=kr, kt=kt, opacity=opacity, rough_u=rough_u,
+                      rough_v=rough_v, eta=eta, vn=vn, sigma=sigma)
+
+
+def eval_bump(scene: CompiledScene, hit: Hit, frame):
+    """Bump-mapped shading frame (reference core/material.cpp Bump):
+    displace p along dpdu/dpdv by the bump texture's finite differences
+    and rebuild ns. No-op when no material carries a bumpmap."""
+    bumped = [(mi, m.textures["bumpmap"]) for mi, m in enumerate(scene.materials)
+              if m.textures.get("bumpmap") is not None]
+    if not bumped:
+        return frame
+    H = hit.p.shape[0]
+    du = 0.5 * (torch.abs(hit.uv[:, 0]) + 1e-3)
+    dv = 0.5 * (torch.abs(hit.uv[:, 1]) + 1e-3)
+    dpdv = cross(hit.ns, hit.dpdu)
+    zero = torch.zeros_like(du)
+    sg0 = ShadingGeom.at(hit.p, hit.uv)
+    sgu = ShadingGeom.at(hit.p + du[:, None] * hit.dpdu, hit.uv + torch.stack([du, zero], -1))
+    sgv = ShadingGeom.at(hit.p + dv[:, None] * dpdv, hit.uv + torch.stack([zero, dv], -1))
+    disp = disp_u = disp_v = torch.zeros((H,), device=hit.p.device)
+    for mi, tex in bumped:
+        sel = hit.mat == mi
+        disp = torch.where(sel, tex.eval(sg0).to(torch.float32).expand(H), disp)
+        disp_u = torch.where(sel, tex.eval(sgu).to(torch.float32).expand(H), disp_u)
+        disp_v = torch.where(sel, tex.eval(sgv).to(torch.float32).expand(H), disp_v)
+    dddu = (disp_u - disp) / torch.clamp(du, min=1e-6)
+    dddv = (disp_v - disp) / torch.clamp(dv, min=1e-6)
+    dpdu_b = hit.dpdu + dddu[:, None] * hit.ns
+    dpdv_b = dpdv + dddv[:, None] * hit.ns
+    ns = normalize(cross(dpdu_b, dpdv_b))
+    # keep the orientation of the original shading normal
+    ns = torch.where((torch.sum(ns * hit.ns, -1) < 0)[:, None], -ns, ns)
+    ss = normalize(dpdu_b - ns * torch.sum(dpdu_b * ns, -1, keepdim=True))
+    return frame._replace(ss=ss, ts=cross(ns, ss), ns=ns)

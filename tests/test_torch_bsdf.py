@@ -71,7 +71,8 @@ def _both(inputs):
                        rough_u=jnp.asarray(p["rough_u"]), rough_v=jnp.asarray(p["rough_u"]),
                        eta=jnp.asarray(p["eta"]), vn=jnp.asarray(p["vn"]),
                        sigma=jnp.asarray(p["sigma"]))
-    tp = tb.BsdfParams(**{k: torch.as_tensor(v) for k, v in p.items()})
+    tp = tb.BsdfParams(**{k: torch.as_tensor(v) for k, v in p.items()},
+                       opacity=torch.as_tensor(z + 1), rough_v=torch.as_tensor(p["rough_u"]))
     tp = tp._replace(kind=tp.kind.long())
     jf = jb.Frame(**{k: jnp.asarray(v) for k, v in frame.items()})
     tf = tb.Frame(**{k: torch.as_tensor(v) for k, v in frame.items()})
@@ -101,7 +102,7 @@ def test_bsdf_sample(inputs):
     ref = jb.bsdf_sample(jlb, jf, jnp.asarray(wo), *(jnp.asarray(x) for x in u[:3]),
                          jnp.asarray(u[3]), lam_nm=jnp.asarray(lam))
     got = tb.bsdf_sample(tlb, tf, torch.as_tensor(wo), *(torch.as_tensor(x) for x in u[:3]),
-                         lam_nm=torch.as_tensor(lam))
+                         torch.as_tensor(u[3]), lam_nm=torch.as_tensor(lam))
     flags = ("is_specular", "did_transmit", "valid")
     same = np.ones(H, bool)
     for name in flags:

@@ -123,6 +123,44 @@ def test_wide_t_pass_matches_pallas(wide, coherent, any_hit, monkeypatch):
     np.testing.assert_array_equal(p, np.asarray(p_b))
 
 
+def test_wide_bvh_with_quadrics_matches_jax(tmp_path):
+    """A scene of 10,370 triangles and two quadrics that reach outside the
+    triangles' box: the narrow tree is built over the triangles' and the
+    quadrics' bounds, as in the JAX package, and the wide collapse drops
+    the quadrics from the leaves. Every array of the port's wide BVH
+    equals the JAX package's build_bvh + build_wide_bvh on its compiled
+    geometry (the root box, the leaf blocks and their count included)."""
+    from pbrt_tpu.scene import api as j_api
+    from pbrt_tpu.scene import parser as j_parser
+    from pbrt_tpu.scene.compile import compile_scene as j_compile
+    from pbrt_tpu_torch.scene import api as t_api
+    from pbrt_tpu_torch.scene import parser as t_parser
+    from pbrt_tpu_torch.scene.compile import compile_scene as t_compile
+    from test_torch_slice import _parse, mesh, uv_sphere
+
+    P, idx = uv_sphere(72, 1.0, (0.0, 0.4, 0.0))
+    path = tmp_path / "wide.pbrt"
+    path.write_text('Film "image" "integer xresolution" [8] "integer yresolution" [8]\n'
+                    "WorldBegin\n" + mesh(P, idx)
+                    + mesh(np.array([[-3, -0.6, -3], [3, -0.6, -3], [3, -0.6, 3], [-3, -0.6, 3]]),
+                           np.array([0, 2, 1, 0, 3, 2]))
+                    + 'AttributeBegin\nTranslate 0.5 3 0\nShape "sphere" "float radius" [0.6]\n'
+                    'AttributeEnd\nAttributeBegin\nTranslate -4 0 1\nRotate 90 1 0 0\n'
+                    'Shape "cylinder" "float radius" [0.3]\nAttributeEnd\nWorldEnd\n')
+    js = j_compile(_parse(j_api, j_parser, path))
+    ts = t_compile(_parse(t_api, t_parser, path), "cpu")
+    assert ts.geom.n_tris == js.geom.n_tris == 10370 and ts.geom.n_quads == 2
+    jw = j_build_wide_bvh(j_build_bvh(js.geom, "sah"), js.geom)
+    tw = ts.accel.wide
+    assert tw.n_blocks == jw.n_blocks
+    for f in bridge.WIDE_FIELDS:
+        np.testing.assert_array_equal(getattr(tw, f).numpy(), np.asarray(getattr(jw, f)),
+                                      err_msg=f)
+    # the quadrics widen the root box beyond the triangles'
+    assert float(tw.world_hi[1]) > 3.5 and float(tw.world_lo[0]) < -4.2
+    assert float(ts.geom.tri_v0[:, 1].max()) < 1.5
+
+
 # ---------------------------------------------------------------------------
 # K2's decomposition: chunks of a tile's run merged in any order by key
 
@@ -194,9 +232,11 @@ def test_merge_keys_order_and_roundtrip():
 
 
 def test_port_builds_with_its_own_builder_source():
-    """In a fresh interpreter the port builds a BVH without importing
-    jax or pbrt_tpu and without opening or running anything under
-    pbrt_tpu/; its builder source is byte-identical to the reference's."""
+    """In a fresh interpreter the port builds a BVH and imports its
+    textures, noise and measured-BRDF modules (and the bridge) without
+    importing jax or pbrt_tpu and without opening or running anything
+    under pbrt_tpu/; its builder source is byte-identical to the
+    reference's."""
     import os
     import subprocess
     import sys
@@ -218,6 +258,8 @@ rng = np.random.RandomState(0)
 v0, e1, e2 = (rng.normal(size=(40, 3)).astype(np.float32) for _ in range(3))
 tree = bvh.build_bvh(v0, e1, e2, "sah")
 assert tree is not None and len(tree.prim_ids) == 40
+import pbrt_tpu_torch.bridge, pbrt_tpu_torch.materials.measured
+from pbrt_tpu_torch.textures import noise, registry
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pbrt_tpu")]
 assert not bad, bad
 assert not touched, touched

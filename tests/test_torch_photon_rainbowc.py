@@ -10,6 +10,10 @@ with maxdepth 1: every surface is matte, so no ray continues past depth
 0 and the image is the authored one; the cut keeps the JAX package's
 CPU compile short.
 
+The exact `rainbowc` (its walls' imagemap x scale texture; the missing
+textures/lines.tga reads as one white texel in both packages, as in the
+reference) goes through the same comparison.
+
 Limits (the render limits of tests/test_torch_slice.py): the image mean
 within 0.5% and at least 99% of pixels within 1e-3 relative.
 """
@@ -49,6 +53,25 @@ def render(api, parser, path, tile):
         return np.asarray(api._state.output)
     finally:
         api._state.__init__()
+
+
+def _matches_jax(path, text):
+    path.write_text(text)
+    tile = 24 * 24 * 2
+    ref = render(j_api, j_parser, path, tile)
+    got = render(t_api, t_parser, path, tile)
+    assert got.shape == ref.shape == (24, 24, 3)
+    assert np.all(np.isfinite(got)) and ref.mean() > 0
+    assert abs(got.mean() - ref.mean()) <= 5e-3 * ref.mean()
+    rel = (np.abs(got - ref) / np.maximum(np.abs(ref), 1e-6)).max(-1)
+    assert (rel <= 1e-3).mean() >= 0.99
+
+
+def test_rainbowc_matches_jax(tmp_path):
+    text = golden_text("rainbowc", crop=CROP).replace(
+        'SurfaceIntegrator "photonmap"', 'SurfaceIntegrator "photonmap" "integer maxdepth" [1]')
+    assert 'Material "matte" "texture Kd" "sgrid"' in text and "lines.tga" in text
+    _matches_jax(tmp_path / "rainbowc.pbrt", text)
 
 
 def test_rainbowc_const_matches_jax(tmp_path):

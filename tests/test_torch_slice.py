@@ -147,8 +147,8 @@ NOT_PORTED = {
     "heightfield": 'Shape "heightfield" "integer nu" [2] "integer nv" [2] '
                    '"float Pz" [0 0 0 0]',
     "goniometric light": 'LightSource "goniometric"',
-    "metal": 'Material "metal"\n' + mesh(QUAD, QUAD_IDX),
-    "texture": 'Texture "c" "color" "checkerboard"',
+    "infinite light": 'LightSource "infinite" "rgb L" [1 1 1]',
+    "projection light": 'LightSource "projection" "rgb I" [1 1 1]',
     "loopsubdiv": 'Shape "loopsubdiv" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
     "moving sphere": 'AttributeBegin\nActiveTransform EndTime\nTranslate 1 0 0\n'
                      'ActiveTransform All\nShape "sphere"\nAttributeEnd',
@@ -179,9 +179,22 @@ def test_unported_features_fail_clearly(tmp_path, what):
         t_api._state.__init__()
 
 
-def test_unknown_integrators_warn_and_fall_back(tmp_path, capsys):
+def test_unknown_integrators_warn_and_fall_back(tmp_path, capsys, monkeypatch):
     """Integrator names neither package knows warn and render as the
-    JAX package does: "path" for the surface, "single" for a volume."""
+    JAX package does: "path" for the surface, "single" for a volume. An
+    unknown BVH split method warns and builds the SAH tree, as the JAX
+    package's builders do."""
+    from pbrt_tpu_torch.core import error
+
+    monkeypatch.setattr(error, "quiet", False)
+    rng = np.random.RandomState(3)
+    v0, e1, e2 = (rng.normal(size=(300, 3)).astype(np.float32) for _ in range(3))
+    sah = build_bvh(v0, e1, e2, "sah")
+    capsys.readouterr()
+    fallback = build_bvh(v0, e1, e2, "nonesuch")
+    assert 'split method "nonesuch" unknown' in capsys.readouterr().err
+    for got, ref in zip(fallback, sah):
+        np.testing.assert_array_equal(got, ref)
     volume = ('Volume "homogeneous" "point p0" [-2 -1 -2] "point p1" [2 2 2] '
               '"rgb sigma_a" [.1 .1 .1] "rgb sigma_s" [.2 .2 .2]\n')
     images = {}
