@@ -88,6 +88,11 @@ MARCH_SIDE, MARCH_STEPS = 128, 64              # [12]'s march leg
 # benchphoton at 512^2 took 188.6 s (render 178.6 s) on an H100 80GB HBM3 at 700 W,
 # over the 180 s its phase may take: cut to 256^2 (PERF.md)
 BENCHPHOTON_RES = 256
+BENCHENV_RES = 1024
+ENV_W, ENV_H = 1024, 512   # [16]'s equirectangular map
+SLICE_RES = 32             # [17]-[20]'s card-vs-CPU size
+MOTION_BENCH_RES = 256     # [19b]: the bench geometry moving, t_pass_bvh
+MOTION_CROP = (0.78125, 0.84375, 0.46875, 0.53125)   # [19b]'s 16 x 16 CPU crop (sphere edge)
 
 
 def log(msg):
@@ -341,6 +346,102 @@ def small_scene_text(res, spp):
     floor = FLOOR.copy()
     floor[:, 1] = 0.0
     return s + 'Material "matte" "rgb Kd" [.5 .5 .5]\n' + mesh(floor, FLOOR_IDX) + "WorldEnd\n"
+
+
+def env_map(w, h, seed):
+    """A seeded equirectangular sky: a gradient from the zenith (row 0)
+    to the horizon, a dark ground half, a bright sun disk and low
+    noise."""
+    rng = np.random.RandomState(seed)
+    v = (np.arange(h) + 0.5) / h
+    sky = np.where(v < 0.5, 0.3 + 0.9 * (v / 0.5), 0.15)[:, None, None]
+    img = sky * np.array([0.55, 0.7, 1.0])[None, None, :] * np.ones((h, w, 3))
+    uu, vv = np.meshgrid((np.arange(w) + 0.5) / w, v)
+    sun = (uu - 0.3) ** 2 + ((vv - 0.25) * 2.0) ** 2 < 0.02 ** 2
+    img[sun] = (200.0, 180.0, 150.0)
+    img = img * (1.0 + 0.05 * rng.rand(h, w, 1))
+    return img.astype(np.float32)
+
+
+def benchenv_scene_text(res, env_path):
+    """The bench geometry lit by an infinite light alone (halton, path
+    maxdepth 5)."""
+    P, idx = uv_sphere(260, 260, 1.0, (0.0, 0.4, 0.0))
+    return (f'Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]\n'
+            'Sampler "halton" "integer pixelsamples" [1]\n'
+            'LookAt 0 1.2 -4  0 0.4 0  0 1 0\nCamera "perspective" "float fov" [45]\n'
+            'SurfaceIntegrator "path" "integer maxdepth" [5]\nWorldBegin\n'
+            'AttributeBegin\nRotate -90 1 0 0\n'
+            f'LightSource "infinite" "rgb L" [1 1 1] "string mapname" "{env_path}"\n'
+            'AttributeEnd\n'
+            'Material "matte" "rgb Kd" [.45 .35 .65]\n' + mesh(P, idx)
+            + 'Material "matte" "rgb Kd" [.55 .55 .5]\n' + mesh(FLOOR, FLOOR_IDX)
+            + "WorldEnd\n")
+
+
+def slice_images(tmp):
+    """[17]'s seeded light images: an exinfinite sky, a goniometric and a
+    projected image -> paths."""
+    from pbrt_tpu_torch.io.image import write_image
+
+    rng = np.random.RandomState(17)
+    paths = {k: os.path.join(tmp, f"slice_{k}.pfm") for k in ("env", "gonio", "proj")}
+    write_image(paths["env"], env_map(64, 32, 17))
+    write_image(paths["gonio"], (rng.rand(16, 32, 3) + 0.5).astype(np.float32))
+    write_image(paths["proj"], rng.rand(24, 32, 3).astype(np.float32))
+    return paths
+
+
+def small_variant_text(res, spp, sampler=None, camera=None, depth=5, lights=None,
+                       moving=False):
+    """The small scene with its sampler, camera, maxdepth or point light
+    replaced; `moving` translates the mirror sphere's mesh over the
+    shutter (TransformTimes 0 1)."""
+    s = small_scene_text(res, spp)
+    if sampler:
+        s = s.replace(f'Sampler "lowdiscrepancy" "integer pixelsamples" [{spp}]', sampler)
+    if camera:
+        s = s.replace('Camera "perspective" "float fov" [45]', camera)
+    s = s.replace('"integer maxdepth" [5]', f'"integer maxdepth" [{depth}]')
+    if lights:
+        s = s.replace('LightSource "point" "point from" [2 4 -3] "rgb I" [15 15 15]\n', lights)
+    if moving:
+        s = s.replace("WorldBegin\n", "TransformTimes 0 1\nWorldBegin\n")
+        s = s.replace('AttributeBegin\nMaterial "mirror"',
+                      'AttributeBegin\nActiveTransform EndTime\nTranslate 0.6 0.3 0\n'
+                      'ActiveTransform All\nMaterial "mirror"')
+    return s
+
+
+def slice_lights_text(paths):
+    """[17]'s lights: an exinfinite map, a goniometric and a projection
+    light (with the small scene's triangle area light)."""
+    return ('AttributeBegin\nRotate -90 1 0 0\nLightSource "exinfinite" "rgb L" [.8 .8 .8] '
+            f'"string mapname" "{paths["env"]}"\nAttributeEnd\n'
+            'AttributeBegin\nTranslate -1 3 -0.5\nRotate 60 1 0 0\nLightSource "goniometric" '
+            f'"rgb I" [10 10 10] "string mapname" "{paths["gonio"]}"\nAttributeEnd\n'
+            'AttributeBegin\nTranslate 0.5 4 -0.5\nRotate 90 1 0 0\nLightSource "projection" '
+            f'"rgb I" [40 40 40] "float fov" [60] "string mapname" "{paths["proj"]}"\n'
+            'AttributeEnd\n')
+
+
+def motion_bench_text(res, crop=None):
+    """The bench geometry with its sphere translating over the shutter
+    (TransformTimes 0 1): a motion scene above BVH_THRESHOLD primitives,
+    so the binary-BVH walk (directlighting maxdepth 5, 1 spp)."""
+    P, idx = uv_sphere(260, 260, 1.0, (0.0, 0.4, 0.0))
+    cw = ('' if crop is None else
+          ' "float cropwindow" [' + " ".join(str(c) for c in crop) + ']')
+    return (f'Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]{cw}\n'
+            'Sampler "lowdiscrepancy" "integer pixelsamples" [1]\n'
+            'LookAt 0 1.2 -4  0 0.4 0  0 1 0\nCamera "perspective" "float fov" [45]\n'
+            'SurfaceIntegrator "directlighting" "integer maxdepth" [5]\n'
+            'TransformTimes 0 1\nWorldBegin\n'
+            'LightSource "point" "point from" [3 6 -4] "rgb I" [60 60 60]\n'
+            'AttributeBegin\nActiveTransform EndTime\nTranslate 0.3 0 0\nActiveTransform All\n'
+            'Material "matte" "rgb Kd" [.45 .35 .65]\n' + mesh(P, idx) + 'AttributeEnd\n'
+            'Material "matte" "rgb Kd" [.55 .55 .5]\n' + mesh(FLOOR, FLOOR_IDX)
+            + "WorldEnd\n")
 
 
 # ---------------------------------------------------------------------------
@@ -666,7 +767,7 @@ class K1Recorder:
         self.kernel, self.plain = kernel, plain
         self.ms = self.plain_ms = self.flops_ms = self.bytes_ms = self.all_flops_ms = 0.0
         self.launches = self.rays = self.live = self.hits = self.tests = 0
-        self.live_shares = []
+        self.live_shares, self.rays_per_launch = [], []
 
     def __call__(self, rays8, tris9, n_tris):
         import torch
@@ -694,6 +795,7 @@ class K1Recorder:
         self.tests += live * n_tris
         self.hits += int((p >= 0).sum())
         self.live_shares.append(live / max(R, 1))
+        self.rays_per_launch.append(R)
         self.flops_ms += live * n_tris * MT_FLOPS / PEAK_F32 * 1e3
         self.all_flops_ms += R * n_tris * MT_FLOPS / PEAK_F32 * 1e3
         self.bytes_ms += (rays8.numel() * 4 + tris9.numel() * 4 + R * 8) / PEAK_BYTES * 1e3
@@ -706,7 +808,7 @@ class K1Recorder:
                 "bound_all_rays_ms": max(self.all_flops_ms, self.bytes_ms),
                 "live_share": self.live / max(self.rays, 1),
                 "live_share_per_launch": [round(x, 4) for x in self.live_shares],
-                "tests": self.tests,
+                "rays_per_launch": self.rays_per_launch, "tests": self.tests,
                 "rays": self.rays, "hits": self.hits}
 
 
@@ -1065,6 +1167,7 @@ def phase_rainbowc(tmp):
         render(text, "rainbowc_checked", tmp)
     r = rec.summary()
     r.pop("live_share_per_launch")
+    r.pop("rays_per_launch")
     if r["launches"] != k1_launches:
         raise RuntimeError(f"rainbowc: K1 launches differ between renders: "
                            f"{r['launches']} vs {k1_launches}")
@@ -1164,6 +1267,7 @@ def phase_smalltex(tmp):
         render(text, "smalltex_checked", tmp, extra=tile)
     r = rec.summary()
     r.pop("live_share_per_launch")
+    r.pop("rays_per_launch")
     if r["launches"] != k1_launches:
         raise RuntimeError(f"smalltex: K1 launches differ between renders: "
                            f"{r['launches']} vs {k1_launches}")
@@ -1173,6 +1277,290 @@ def phase_smalltex(tmp):
     return {"seconds": sec, "k1_launches": k1_launches, "k2_launches": bvh_cuda.launches,
             "k1": r, "cpu_seconds": cpu_sec, "cpu_mean_rel": mean_rel,
             "cpu_within_1e-3": within}
+
+
+def escaped_env_check(text, img, tmp, device, rows=8):
+    """The escaped camera rays show the map: for the pixels of the top
+    `rows` rows whose camera ray (the render's own sample: 1 spp, box
+    filter) leaves the scene, the image equals the map's radiance in
+    that direction, env_le, converted as the film converts it. -> (pixels
+    checked, largest relative difference)."""
+    import torch
+    from pbrt_tpu_torch.cameras.cameras import make_camera
+    from pbrt_tpu_torch.core import spectrum
+    from pbrt_tpu_torch.core.transform import Transform
+    from pbrt_tpu_torch.film import film as film_mod
+    from pbrt_tpu_torch.lights.lighting import env_le
+    from pbrt_tpu_torch.samplers.samplers import camera_samples, make_sampler
+
+    scene, ro = compile_text(text, "benchenv_check", tmp, device)
+    film = film_mod.make_film(ro.film_name, ro.film_params,
+                              film_mod.make_filter(ro.filter_name, ro.filter_params), {})
+    camera = make_camera(ro.camera_name, ro.camera_params, ro.camera_to_world or Transform(),
+                         film.xres, film.yres)
+    sampler = make_sampler(ro.sampler_name, ro.sampler_params, {})
+    ids = torch.arange(rows * film.nx, device=device)
+    px, py = ids % film.nx, ids // film.nx
+    cs = camera_samples(sampler, px, py, film.xres, 0)
+    ray, _ = camera.generate_rays(cs.px, cs.py, cs.u_lens1, cs.u_lens2, cs.u_time)
+    escaped = ~scene.intersect(ray, coherent=True).valid
+    xyz = spectrum.to_xyz(env_le(scene.lights, ray.d)).double().cpu().numpy()
+    want = np.maximum(xyz @ np.asarray(spectrum.XYZ_TO_RGB).T, 0.0)
+    got = img[py.cpu().numpy(), px.cpu().numpy()]
+    esc = escaped.cpu().numpy()
+    rel = np.abs(got[esc] - want[esc]).max(-1) / np.maximum(np.abs(want[esc]).max(-1), 1e-6)
+    if esc.sum() < 100 or not (rel <= 1e-4).all():
+        raise RuntimeError(f"benchenv: escaped camera rays do not show the map ({int(esc.sum())} "
+                           f"escaped, worst {rel.max() if esc.any() else 0:.3g})")
+    return int(esc.sum()), float(rel.max())
+
+
+def phase_benchenv(tmp):
+    """[16]: benchenv through the CLI on the card (timed): the bench
+    geometry (K2) lit by an infinite light alone, halton, path maxdepth
+    5; the escaped camera rays checked against the map; then again with
+    CUDA events around every K2 launch, the env-map importance sampling
+    and the escape emission -> dict."""
+    from pbrt_tpu_torch.integrators import surface
+    from pbrt_tpu_torch.io.image import write_image
+    from pbrt_tpu_torch.lights import lighting
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+
+    res = BENCHENV_RES
+    env_path = os.path.join(tmp, "benchenv_sky.pfm")
+    write_image(env_path, env_map(ENV_W, ENV_H, 16))
+    text = benchenv_scene_text(res, env_path)
+    intersect_cuda.launches = 0
+    bvh_cuda.launches = 0
+    with NoPlain():
+        img, sec = render(text, "benchenv", tmp)
+    k2_launches, k1_launches = bvh_cuda.launches, intersect_cuda.launches
+    lum = img.mean(-1)
+    log(f"  {res}x{res}, 1 spp: {sec:.2f} s end to end (parse + compile + BVH build + render), "
+        f"{res * res / sec:.0f} camera rays/s, image mean {img.mean():.5f} (luminance std "
+        f"{lum.std():.5f}), K2 launches {k2_launches}, K1 launches {k1_launches}")
+    if k2_launches <= 0:
+        raise RuntimeError("benchenv render did not launch K2")
+    if not lum.std() > 1e-3 * max(lum.mean(), 1e-9):
+        raise RuntimeError("benchenv: image constant")
+    n_esc, worst = escaped_env_check(text, img, tmp, "cuda")
+    log(f"  escaped camera rays of the top 8 rows: {n_esc}, each pixel equals the map's "
+        f"radiance in its direction (worst relative difference {worst:.3g})")
+
+    k2 = LaunchTimer(bvh_cuda.wide_sweep_cuda, work=k2_work)
+    env_sample = LaunchTimer(lighting._env_direction)
+    escape = LaunchTimer(surface._add_escape_emission)
+    bvh_cuda.launches = 0
+    with NoPlain(), Patched((bvh_cuda, "wide_sweep", k2), (lighting, "_env_direction", env_sample),
+                            (surface, "_add_escape_emission", escape)):
+        _, sec_ev = render(text, "benchenv_events", tmp)
+    if bvh_cuda.launches != k2_launches:
+        raise RuntimeError(f"benchenv: K2 launches differ between renders: "
+                           f"{bvh_cuda.launches} vs {k2_launches}")
+    work = k2.work_rows()
+    spans = {"env_sample_ms": env_sample.total_ms(), "env_sample_calls": len(env_sample.events),
+             "escape_ms": escape.total_ms(), "escape_calls": len(escape.events),
+             "k2_ms": k2.total_ms(), "k2_launches": len(k2.events),
+             "k2_pairs": sum(w[0] for w in work),
+             "k2_bound_ms": sum(max(f, b) for f, b in (k2_launch_bound(*w) for w in work))}
+    log(f"  again with events: {sec_ev:.2f} s end to end; event spans: env-map sampling "
+        f"{spans['env_sample_ms']:.1f} ms over {spans['env_sample_calls']} calls, escape "
+        f"emission {spans['escape_ms']:.1f} ms over {spans['escape_calls']} calls, K2 "
+        f"{spans['k2_ms']:.1f} ms over {spans['k2_launches']} launches ({spans['k2_pairs']} "
+        f"(tile, block) pairs, bound {spans['k2_bound_ms']:.3f} ms)")
+    return {"res": res, "seconds": sec, "camera_rays_per_s": res * res / sec,
+            "seconds_with_events": sec_ev, "k2_launches": k2_launches,
+            "k1_launches": k1_launches, "image_mean": float(img.mean()),
+            "escaped_checked": n_esc, "escaped_worst_rel": worst, "spans": spans}
+
+
+def card_and_cpu(text, name, tmp, spp, k1_check=False):
+    """Render a SLICE_RES^2 scene of `spp` samples a pixel (one tile of
+    exactly its samples: no padding pixels) on the card (K1 launches
+    counted) and on the CPU, within agree()'s limits; with k1_check, a
+    third render on the card holds every K1 launch bit for bit against
+    the plain twin. -> dict."""
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+    from pbrt_tpu_torch.renderers import driver
+
+    tile = ("--tile-samples", str(SLICE_RES * SLICE_RES * spp))
+    intersect_cuda.launches = 0
+    bvh_cuda.launches = 0
+    gpu, sec = render(text, name + "_gpu", tmp, extra=tile)
+    out = {"seconds": sec, "k1_launches": intersect_cuda.launches,
+           "k2_launches": bvh_cuda.launches,
+           "vetoed_gpu": driver.last_stats.get("adaptive_vetoed", 0)}
+    cpu, cpu_sec = render(text, name + "_cpu", tmp, extra=(*tile, "--device", "cpu"))
+    out["vetoed_cpu"] = driver.last_stats.get("adaptive_vetoed", 0)
+    out["cpu_seconds"] = cpu_sec
+    out["cpu_mean_rel"], out["cpu_within_1e-3"] = agree(
+        gpu, cpu, f"{name} ({sec:.2f} s on the card, {cpu_sec:.2f} s on the CPU)")
+    if k1_check:
+        rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
+        with Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
+            render(text, name + "_checked", tmp, extra=tile)
+        r = rec.summary()
+        if r["launches"] != out["k1_launches"] or r["launches"] <= 0:
+            raise RuntimeError(f"{name}: K1 launches {r['launches']} vs {out['k1_launches']}")
+        log(f"  every one of {r['launches']} K1 launches bit-equal to the plain twin; kernel "
+            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, live share {r['live_share']:.4f}, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        out["k1"] = r
+    return out
+
+
+def phase_smalllights(tmp):
+    """[17]: the small scene lit by an exinfinite map, a goniometric and
+    a projection light (bestcandidate, path maxdepth 3, 32^2, 4 spp):
+    card vs CPU, every K1 launch bit for bit. -> dict."""
+    text = small_variant_text(SLICE_RES, 4, 'Sampler "bestcandidate" "integer pixelsamples" [4]',
+                              depth=3, lights=slice_lights_text(slice_images(tmp)))
+    out = card_and_cpu(text, "smalllights", tmp, 4, k1_check=True)
+    out["k1"].pop("live_share_per_launch")
+    out["k1"].pop("rays_per_launch")
+    return out
+
+
+def phase_samplers_cameras(tmp):
+    """[18]: the small scene (path maxdepth 3, 32^2) on the card and on
+    the CPU: adaptive by contrast (min 2, max 8) under the perspective
+    camera, adaptive by shape id under an orthographic camera, halton
+    under an environment camera. The vetoes must fire on some pixels but
+    not all, on both devices alike (within 1%); K1's launches and live
+    share in the adaptive second pass (its 8-sample camera rays, the
+    lanes of passing pixels dead). -> dict."""
+    sampler = 'Sampler "adaptive" "integer minsamples" [2] "integer maxsamples" [8]'
+    cases = {
+        "adaptive contrast": small_variant_text(SLICE_RES, 4, sampler, depth=3),
+        "adaptive shapeid orthographic": small_variant_text(
+            SLICE_RES, 4, sampler + ' "string method" "shapeid"',
+            'Camera "orthographic" "float screenwindow" [-3 3 -3 3]', depth=3),
+        "halton environment": small_variant_text(
+            SLICE_RES, 4, 'Sampler "halton" "integer pixelsamples" [4]',
+            'Camera "environment"', depth=3),
+    }
+    out = {}
+    for name, text in cases.items():
+        adaptive = name.startswith("adaptive")
+        r = card_and_cpu(text, name.replace(" ", "_"), tmp, 8 if adaptive else 4,
+                         k1_check=adaptive)
+        if adaptive:
+            n_pix = SLICE_RES * SLICE_RES
+            vg, vc = r["vetoed_gpu"], r["vetoed_cpu"]
+            second = [x for x, n in zip(r["k1"].pop("live_share_per_launch"),
+                                        r["k1"].pop("rays_per_launch"))
+                      if n == n_pix * 8]
+            log(f"  vetoed pixels: card {vg}, CPU {vc} of {n_pix}; second pass: "
+                f"{len(second)} K1 launches, live share {second[:6]}")
+            if not (0 < vg < n_pix and 0 < vc < n_pix) or abs(vg - vc) > 0.01 * max(vc, 1):
+                raise RuntimeError(f"{name}: vetoes {vg} (card) vs {vc} (CPU)")
+            r["second_pass_live_share"] = second
+        out[name] = r
+    return out
+
+
+def phase_motion(tmp):
+    """[19]: (a) the small scene with its mirror sphere moving (the block
+    scan at ray time, plain torch) card vs CPU at 32^2; (b) the bench
+    geometry with its sphere moving (a motion scene above 32,768
+    primitives: the binary-BVH walk t_pass_bvh), directlighting 256^2,
+    1 spp, timed, with the walk's traversals, iterations and event spans;
+    card vs CPU on a 16 x 16 crop. -> dict."""
+    from pbrt_tpu_torch.accel import bvh as bvh_mod
+
+    moving = small_variant_text(SLICE_RES, 4, depth=3, moving=True)
+    a = card_and_cpu(moving, "motion_small", tmp, 4)
+    if a["k1_launches"] or a["k2_launches"]:
+        raise RuntimeError("motion scene reached a kernel")
+    res = MOTION_BENCH_RES
+    bvh_mod.walk_stats.update(traversals=0, iterations=0)
+    walk = LaunchTimer(bvh_mod.t_pass_bvh)
+    with Patched((bvh_mod, "t_pass_bvh", walk)):
+        img, sec = render(motion_bench_text(res), "motion_bench", tmp)
+    st = dict(bvh_mod.walk_stats)
+    walk_ms = walk.total_ms()
+    n = max(st["traversals"], 1)
+    log(f"  (b) {res}x{res}: {sec:.2f} s end to end, {res * res / sec:.0f} camera rays/s; "
+        f"t_pass_bvh {st['traversals']} traversals, {st['iterations'] / n:.1f} iterations and "
+        f"{walk_ms / n:.2f} ms per traversal (event spans; {walk_ms / 1e3 / sec:.3f} of the "
+        f"render)")
+    if st["traversals"] <= 0:
+        raise RuntimeError("motion bench render did not walk the binary BVH")
+    x0, x1, y0, y1 = (int(np.ceil(res * c)) for c in MOTION_CROP)
+    crop = motion_bench_text(res, MOTION_CROP)
+    cpu, cpu_sec = render(crop, "motion_bench_crop_cpu", tmp,
+                          extra=("--device", "cpu", "--tile-samples", str((x1 - x0) * (y1 - y0))))
+    mean_rel, within = agree(img[y0:y1, x0:x1], cpu,
+                             f"(b) crop {x1 - x0}x{y1 - y0} ({cpu_sec:.2f} s on the CPU)")
+    return {"small": a, "bench": {"res": res, "seconds": sec, "camera_rays_per_s": res * res / sec,
+                                  "traversals": st["traversals"],
+                                  "iterations_per_traversal": st["iterations"] / n,
+                                  "ms_per_traversal": walk_ms / n, "walk_ms": walk_ms,
+                                  "cpu_crop_seconds": cpu_sec, "cpu_mean_rel": mean_rel,
+                                  "cpu_within_1e-3": within}}
+
+
+def phase_checkpoint(tmp):
+    """[20]: [17]'s scene with --checkpoint and 15-pixel tiles (69 tiles;
+    the CLI checkpoints every 64, so after tile 64) under --verbose, then
+    again from the checkpoint file it left: the resumed image equals the
+    uninterrupted one bit for bit, and the statistics counters count the
+    tiles and camera samples each render did. -> dict."""
+    from pbrt_tpu_torch.core import probes
+    from pbrt_tpu_torch.renderers import driver
+
+    text = small_variant_text(SLICE_RES, 4, 'Sampler "bestcandidate" "integer pixelsamples" [4]',
+                              depth=3, lights=slice_lights_text(slice_images(tmp)))
+    ckpt = os.path.join(tmp, "film_checkpoint.npz")
+    per_tile = 15
+    extra = ("--tile-samples", str(per_tile * 4), "--checkpoint", ckpt, "--verbose")
+    n_pix = SLICE_RES * SLICE_RES
+    n_tiles = -(-n_pix // per_tile)
+    probes.reset()
+    full, sec = render(text, "checkpoint_full", tmp, extra=extra)
+    c_full = probes.counters()
+    z = np.load(ckpt)
+    probes.reset()
+    resumed, sec_r = render(text, "checkpoint_resumed", tmp, extra=extra)
+    c_res = probes.counters()
+    start = driver.last_stats["start_tile"]
+    log(f"  full render {sec:.2f} s ({n_tiles} tiles; checkpoint left after tile "
+        f"{int(z['tile'])}); resumed from tile {start}: {sec_r:.2f} s; counters {c_full} then "
+        f"{c_res}; resumed == full bit for bit: {np.array_equal(resumed, full)}")
+    if int(z["tile"]) != 64 or start != 64:
+        raise RuntimeError(f"checkpoint: tile {int(z['tile'])}, resumed at {start}")
+    if not np.array_equal(resumed.view(np.int32), full.view(np.int32)):
+        raise RuntimeError(f"checkpoint: the resumed image differs on "
+                           f"{int((resumed != full).any(-1).sum())} pixels")
+    want = ({"render/tiles": n_tiles, "render/camera_samples": n_pix * 4},
+            {"render/tiles": n_tiles - 64, "render/camera_samples": (n_pix - 64 * per_tile) * 4})
+    if (c_full, c_res) != want:
+        raise RuntimeError(f"checkpoint: counters {c_full}, {c_res}, expected {want}")
+    return {"seconds": sec, "resumed_seconds": sec_r, "checkpoint_tile": int(z["tile"]),
+            "counters": [c_full, c_res], "bit_equal": True}
+
+
+def run_slice_phases(tmp):
+    """[16]-[20], the lights, samplers, cameras, motion and checkpoint
+    slice -> dict."""
+    out = {}
+    for key, title, fn in (
+            ("benchenv", f"[16] benchenv (bench geometry, infinite light alone; halton, path "
+                         f"maxdepth 5) {BENCHENV_RES}x{BENCHENV_RES}, 1 spp", phase_benchenv),
+            ("smalllights", "[17] small scene under an exinfinite map, a goniometric and a "
+                            "projection light (bestcandidate, path maxdepth 3), card vs CPU",
+             phase_smalllights),
+            ("samplers", "[18] adaptive (contrast; shape id, orthographic) and halton "
+                         "(environment camera), card vs CPU", phase_samplers_cameras),
+            ("motion", "[19] motion blur: the block scan at ray time (small scene), the "
+                       "binary-BVH walk (bench geometry)", phase_motion),
+            ("checkpoint", "[20] checkpoint / resume and the statistics counters",
+             phase_checkpoint)):
+        log(title)
+        t0 = time.perf_counter()
+        out[key] = fn(tmp)
+        log(f"  {title.split()[0]} took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def compile_text(scene_text, out_name, tmp, device):
@@ -1688,6 +2076,7 @@ def main():
         benchvol = phase_benchvol(tmp)
         photon = run_photon_phases(tmp, device)
         textured = run_texture_phases(tmp)
+        sliced = run_slice_phases(tmp)
 
     # K1: every launch of the small render, the goldens, rainbowc and the
     # small textured scene (set3: 65,536 rays x 4,096 triangles); K2: the
@@ -1698,14 +2087,21 @@ def main():
     k1["goldens"] = goldens
     k1["rainbowc"] = photon["rainbowc"]
     k1["smalltex"] = textured["smalltex"]
+    k1["smalllights"] = sliced["smalllights"]
+    k1["samplers"] = sliced["samplers"]
     k1["launches"] += (sum(g["k1_launches"] for g in goldens.values())
-                       + photon["rainbowc"]["k1_launches"] + textured["smalltex"]["k1_launches"])
+                       + photon["rainbowc"]["k1_launches"] + textured["smalltex"]["k1_launches"]
+                       + sliced["smalllights"]["k1_launches"]
+                       + sum(r["k1_launches"] for r in sliced["samplers"].values()))
     k2["benchvol"] = benchvol
     k2["benchphoton"] = photon["benchphoton"]
     k2["benchtex"] = textured["benchtex"]
+    k2["benchenv"] = sliced["benchenv"]
     k2["launches"] += (benchvol["k2_launches"] + photon["benchphoton"]["k2_launches"]
-                       + textured["benchtex"]["k2_launches"])
+                       + textured["benchtex"]["k2_launches"] + sliced["benchenv"]["k2_launches"])
     log(f"  photon legs: {json.dumps(photon['photon_legs'])}")
+    log(f"  motion: {json.dumps(sliced['motion'], default=float)}; checkpoint: "
+        f"{json.dumps(sliced['checkpoint'])}")
     log(f"  all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": "k1_sweep_kernel", "route": "cuda",

@@ -1,18 +1,30 @@
-"""BVH accelerator: host build, and the t-pass dispatch of the main path.
+"""BVH accelerator: host build, the binary-BVH walk, and the t-pass
+dispatch.
 
-Port of the parts of pbrt_tpu/accel/bvh.py the main path runs. The
-binary tree comes from the port's own copy of the reference's native
-C++ builder (csrc/bvh_builder.cpp, byte-identical to the reference's,
-so both packages build the same tree), compiled with g++ into the
-port's build directory, over the reference's primitive bounds
-(triangles, then quadric boxes); accel/wide_bvh.py then collapses it
-into 128-triangle leaf blocks, dropping the quadrics from the leaves.
-The dispatch follows the reference's TPU branch: scenes with at least
-WIDE_THRESHOLD triangles use the packet pipeline (ops/bvh_cuda.py,
-kernel K2), smaller ones the flat t-pass (ops/intersect_cuda.py, kernel
-K1); the quadrics are then folded into the triangles' result
-(accel/intersect.py quad_t_pass). A scene without triangles folds its
-quadrics into empty accumulators and runs no triangle t-pass.
+Port of pbrt_tpu/accel/bvh.py. The binary tree comes from the port's
+own copy of the reference's native C++ builder (csrc/bvh_builder.cpp,
+byte-identical to the reference's, so both packages build the same
+tree), compiled with g++ into the port's build directory, over the
+reference's primitive bounds (triangles, then quadric boxes, each
+unioned with its end-of-shutter bounds in a motion scene). make_accel
+routes each scene as the reference's make_accel does on its TPU:
+
+  - static scenes with at least WIDE_THRESHOLD triangles: the packet
+    pipeline (accel/wide_bvh.py collapses the tree into 128-triangle
+    leaf blocks without the quadrics; ops/bvh_cuda.py, kernel K2);
+  - more than BVH_THRESHOLD primitives otherwise (or force="bvh"): the
+    binary tree, walked per ray with a short stack (t_pass_bvh, plain
+    torch);
+  - other static scenes: the flat t-pass (ops/intersect_cuda.py,
+    kernel K1);
+  - other motion scenes: the block scan at each ray's time
+    (accel/intersect.py t_pass_brute, plain torch).
+
+Motion scenes reach neither kernel, in either package: that is the
+reference's own routing, not a fallback. After K1, K2 or the block scan
+the quadrics are folded into the triangles' result (accel/intersect.py
+quad_t_pass); a scene without triangles folds its quadrics into empty
+accumulators. The walk tests triangles and quadrics in its leaves.
 """
 from __future__ import annotations
 
@@ -28,20 +40,36 @@ import torch
 
 from pbrt_tpu_torch.core.error import PbrtError, info, warning
 from pbrt_tpu_torch.core.geometry import Ray
-from pbrt_tpu_torch.core.transform import xform_point_affine
-from pbrt_tpu_torch.accel.intersect import BIG, SceneGeom, quad_t_pass, reconstruct
+from pbrt_tpu_torch.core.transform import xform_point_affine, xform_vector
+from pbrt_tpu_torch.accel import intersect
+from pbrt_tpu_torch.accel.intersect import (
+    BIG,
+    SceneGeom,
+    mt_t,
+    quad_candidates,
+    quad_t_pass,
+    reconstruct,
+)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NATIVE_SRC = os.path.join(_PKG, "csrc", "bvh_builder.cpp")
 _BUILD_ROOT = os.path.join(_PKG, "_build")
 WIDE_THRESHOLD = 8192
 BVH_THRESHOLD = 32768   # primitives above which the reference traverses a binary BVH
+MAX_DEPTH = 64          # the walk's stack; pushes past it are dropped, as in the reference
+LEAF_MAX = 4
+WALK_CHECK_EVERY = 8    # t_pass_bvh iterations between reads of the stop condition
+# what the walks did since the last reset (chip_smoke.py [19]):
+# traversals and stack iterations
+walk_stats = {"traversals": 0, "iterations": 0}
 _LOCK = threading.Lock()
 _LIB = None
 
 
 class BVH(NamedTuple):
-    """Flattened binary tree (NumPy, host): first child adjacent."""
+    """Flattened binary tree: first child adjacent. NumPy on the host
+    (build_bvh); torch on the device in BvhScene.bvh (node_meta and
+    prim_ids as int64)."""
 
     node_lo: np.ndarray    # [N, 3]
     node_hi: np.ndarray    # [N, 3]
@@ -87,10 +115,10 @@ def _tri_bounds(v0, e1, e2):
     return lo.astype(np.float32), hi.astype(np.float32)
 
 
-def quad_bounds(quad_o2w: np.ndarray, quad_params: np.ndarray):
+def quad_bounds(quad_o2w: np.ndarray, quad_params: np.ndarray, quad_o2w_end=None):
     """World boxes [Q, 3] of the quadrics (the reference's _prim_bounds:
     the object box [-r, r]^2 x [zmin, zmax] through o2w, corner by
-    corner)."""
+    corner, and through the end-of-shutter o2w too when given)."""
     lo_q = np.zeros((len(quad_params), 3), np.float32)
     hi_q = np.zeros((len(quad_params), 3), np.float32)
     for i in range(len(quad_params)):
@@ -98,22 +126,48 @@ def quad_bounds(quad_o2w: np.ndarray, quad_params: np.ndarray):
         zmin, zmax = float(quad_params[i, 1]), float(quad_params[i, 2])
         corners = np.array([[x, y, z] for x in (-r, r) for y in (-r, r) for z in (zmin, zmax)])
         wc = xform_point_affine(quad_o2w[i], corners)
+        if quad_o2w_end is not None:
+            wc = np.concatenate([wc, xform_point_affine(quad_o2w_end[i], corners)])
         lo_q[i] = wc.min(0)
         hi_q[i] = wc.max(0)
     return lo_q, hi_q
+
+
+def prim_bounds(geom: SceneGeom):
+    """World bounds [P, 3] of every primitive (triangles, then quadrics),
+    each unioned with its end-of-shutter bounds in a motion scene (linear
+    motion stays within the endpoint hull per vertex)."""
+    v0, e1, e2 = (x.cpu().numpy() for x in (geom.tri_v0, geom.tri_e1, geom.tri_e2))
+    lo, hi = _tri_bounds(v0, e1, e2)
+    if geom.tri_dv0 is not None:
+        v0e = v0 + geom.tri_dv0.cpu().numpy()
+        lo_e, hi_e = _tri_bounds(v0e, e1 + geom.tri_de1.cpu().numpy(),
+                                 e2 + geom.tri_de2.cpu().numpy())
+        lo, hi = np.minimum(lo, lo_e), np.maximum(hi, hi_e)
+    if geom.n_quads > 0:
+        end = None if geom.quad_o2w_end is None else geom.quad_o2w_end.cpu().numpy()
+        lo_q, hi_q = quad_bounds(geom.quad_o2w.cpu().numpy(), geom.quad_params.cpu().numpy(),
+                                 end)
+        lo, hi = np.concatenate([lo, lo_q]), np.concatenate([hi, hi_q])
+    return lo.astype(np.float32), hi.astype(np.float32)
 
 
 def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, split_method: str = "sah",
               quads=None) -> Optional[BVH]:
     """Binary BVH over the triangles (v0, e1, e2) [T, 3] float32, then
     the quadric boxes `quads` = (lo [Q, 3], hi [Q, 3]) if given: prim ids
-    T.. are the quadrics, as in the reference. An unknown split method
-    warns and builds SAH (the reference's native builder maps it to
-    SAH)."""
+    T.. are the quadrics, as in the reference."""
     lo, hi = _tri_bounds(v0, e1, e2)
     if quads is not None and len(quads[0]):
         lo = np.concatenate([lo, quads[0]]).astype(np.float32)
         hi = np.concatenate([hi, quads[1]]).astype(np.float32)
+    return build_bvh_bounds(lo, hi, split_method)
+
+
+def build_bvh_bounds(lo: np.ndarray, hi: np.ndarray, split_method: str = "sah") -> Optional[BVH]:
+    """Binary BVH over primitive boxes lo/hi [P, 3]. An unknown split
+    method warns and builds SAH (the reference's native builder maps it
+    to SAH)."""
     n = len(lo)
     if n == 0:
         return None
@@ -142,16 +196,142 @@ def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, split_method: str 
     return BVH(node_lo[:cnt], node_hi[:cnt], meta[:cnt], order)
 
 
+def bvh_to(bvh: BVH, device) -> BVH:
+    """The host tree as device tensors."""
+    return BVH(torch.as_tensor(bvh.node_lo, device=device),
+               torch.as_tensor(bvh.node_hi, device=device),
+               torch.as_tensor(bvh.node_meta, dtype=torch.int64, device=device),
+               torch.as_tensor(bvh.prim_ids, dtype=torch.int64, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Device traversal of the binary tree (reference bvh.py t_pass_bvh)
+
+def _leaf_prims_t(geom: SceneGeom, prim_ids, o, d, tmin, tmax, time):
+    """Candidate t of up to LEAF_MAX gathered prims per ray, at each
+    ray's time. prim_ids: [R, K] global ids (-1 = none). -> (t [R, K],
+    valid [R, K])."""
+    T = geom.n_tris
+    dev = o.device
+    is_tri = (prim_ids >= 0) & (prim_ids < T)
+    tb = torch.full(prim_ids.shape, BIG, device=dev)
+    vb = torch.zeros(prim_ids.shape, dtype=torch.bool, device=dev)
+    if T > 0:
+        tri_idx = torch.clamp(torch.where(is_tri, prim_ids, 0), 0, T - 1)
+        v0, e1, e2 = geom.tri_at(tri_idx, time[:, None])
+        t, v = mt_t(*(x[..., i] for x in (v0, e1, e2) for i in range(3)),
+                    *(o[:, None, i] for i in range(3)), *(d[:, None, i] for i in range(3)),
+                    tmin[:, None], tmax[:, None])
+        tb = torch.where(is_tri & v, t, tb)
+        vb = vb | (is_tri & v)
+    if geom.n_quads > 0:
+        q_idx = torch.clamp(torch.where(prim_ids >= T, prim_ids - T, 0), 0, geom.n_quads - 1)
+        _, w2o = geom.quad_xforms_at(q_idx, time[:, None])
+        oo = xform_point_affine(w2o, o[:, None])
+        od = xform_vector(w2o, d[:, None])
+        t, v = quad_candidates(geom.quad_type[q_idx], geom.quad_params[q_idx], oo, od,
+                               tmin[:, None], tmax[:, None], present=geom.quad_present)
+        is_q = prim_ids >= T
+        tb = torch.where(is_q & v, t, tb)
+        vb = vb | (is_q & v)
+    return tb, vb
+
+
+def t_pass_bvh(bvh: BVH, geom: SceneGeom, ray, any_hit: bool = False):
+    """Per-ray short-stack walk of the binary tree, all rays in lockstep
+    (reference bvh.cpp:585-687 Intersect). Returns (t [R], prim [R]).
+
+    The reference's rules, each of which decides which prim wins: the
+    slab test uses 1/where(|d| > 1e-20, d, 1e-20) and accepts a box at
+    tn <= tf * 1.0001; a leaf takes its first least candidate and must
+    be strictly nearer than the best so far; children are pushed far
+    first (near popped first) by the ray's sign on the split axis, and
+    a push past MAX_DEPTH is silently dropped; an any-hit walk ends
+    only once every ray has hit or emptied its stack. The loop ends on
+    the host, which reads the stop condition every WALK_CHECK_EVERY
+    iterations (one host sync each); once it holds on the device, every
+    later iteration is a no-op, so the result is the reference's
+    exactly."""
+    R = ray.o.shape[0]
+    dev = ray.o.device
+    o, d = ray.o, ray.d
+    big = torch.full((), BIG, device=dev)
+    inv_d = 1.0 / torch.where(torch.abs(d) > 1e-20, d, torch.full((), 1e-20, device=dev))
+    neg = inv_d < 0.0
+    t_best = torch.where(torch.isfinite(ray.tmax), ray.tmax, big)
+    prim_best = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    stack = torch.zeros((R, MAX_DEPTH), dtype=torch.int64, device=dev)
+    sp = torch.ones((R,), dtype=torch.int64, device=dev)   # the root pre-pushed
+    stopped = torch.zeros((), dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int64, device=dev)
+    P = bvh.prim_ids.shape[0]
+    k = torch.arange(LEAF_MAX, device=dev)
+    minus1 = torch.full((), -1, dtype=torch.int64, device=dev)
+
+    def push(stack, sp, node, can):
+        slot = torch.clamp(sp, max=MAX_DEPTH - 1)[:, None]
+        stack.scatter_(1, slot, torch.where(can, node, stack.gather(1, slot)[:, 0])[:, None])
+        return torch.where(can, sp + 1, sp)
+
+    n = 0
+    while True:
+        if n % WALK_CHECK_EVERY == 0 and not bool((~stopped) & (sp > 0).any()):
+            break
+        n += 1
+        has = (sp > 0) & ~stopped
+        iters = iters + has.any()
+        top = torch.clamp(sp - 1, min=0)
+        node = torch.where(has, stack.gather(1, top[:, None])[:, 0], 0)
+        sp2 = torch.where(has, sp - 1, sp)
+        lo, hi, m = bvh.node_lo[node], bvh.node_hi[node], bvh.node_meta[node]
+        # slab test against the best t so far
+        t_lo = (lo - o) * inv_d
+        t_hi = (hi - o) * inv_d
+        tn = torch.maximum(torch.amax(torch.minimum(t_lo, t_hi), -1), ray.tmin)
+        tf = torch.minimum(torch.amin(torch.maximum(t_lo, t_hi), -1), t_best)
+        box_hit = has & (tn <= tf * 1.0001)
+        is_leaf = m[:, 1] > 0
+        # leaf: up to LEAF_MAX prims
+        in_range = (k[None, :] < m[:, 1:2]) & (box_hit & is_leaf)[:, None]
+        pidx = torch.clamp(m[:, 0:1] + k[None, :], 0, max(P - 1, 0))
+        gids = torch.where(in_range, bvh.prim_ids[pidx], minus1)
+        t_c, v_c = _leaf_prims_t(geom, gids, o, d, ray.tmin, t_best, ray.time)
+        t_c = torch.where(v_c, t_c, big)
+        t_leaf = torch.amin(t_c, -1)
+        j = torch.amin(torch.where(t_c == t_leaf[:, None], k, LEAF_MAX), -1)
+        g_leaf = gids.gather(1, torch.clamp(j, max=LEAF_MAX - 1)[:, None])[:, 0]
+        better = box_hit & is_leaf & (t_leaf < t_best)
+        t_best = torch.where(better, t_leaf, t_best)
+        prim_best = torch.where(better, g_leaf, prim_best)
+        # interior: push far, then near (near is popped first)
+        neg_ax = neg.gather(1, torch.clamp(m[:, 2:3], 0, 2))[:, 0]
+        c1, c2 = node + 1, m[:, 0]
+        near = torch.where(neg_ax, c2, c1)
+        far = torch.where(neg_ax, c1, c2)
+        do_push = box_hit & ~is_leaf
+        sp3 = push(stack, sp2, far, do_push & (sp2 < MAX_DEPTH))
+        sp3 = push(stack, sp3, near, do_push & (sp3 < MAX_DEPTH))
+        sp = sp3
+        if any_hit:
+            stopped = stopped | torch.all((prim_best >= 0) | (sp == 0))
+    walk_stats["traversals"] += 1
+    walk_stats["iterations"] += int(iters)
+    return torch.where(prim_best >= 0, t_best, big), prim_best
+
+
 class BvhScene(NamedTuple):
-    """Geometry + acceleration: the wide packet pipeline (K2) for
-    triangle-heavy scenes, the flat t-pass (K1) for other scenes with
-    triangles, and the quadric fold after either (or alone)."""
+    """Geometry + acceleration: the wide packet pipeline (K2), the
+    binary-BVH walk, the flat t-pass (K1), or the block scan at ray
+    time, then the quadric fold (after all but the walk)."""
 
     geom: SceneGeom
     tri_soa: object = None   # ops.intersect_cuda.TriSoA
     wide: object = None      # accel.wide_bvh.WideBVH
+    bvh: BVH = None          # the binary tree on the device
 
     def _t_pass(self, ray: Ray, any_hit: bool = False, coherent: bool = False):
+        if self.bvh is not None:
+            return t_pass_bvh(self.bvh, self.geom, ray, any_hit=any_hit)
         if self.wide is not None:
             from pbrt_tpu_torch.ops.bvh_cuda import wide_t_pass
 
@@ -161,6 +341,8 @@ class BvhScene(NamedTuple):
             from pbrt_tpu_torch.ops.intersect_cuda import tri_t_pass
 
             t, prim = tri_t_pass(self.tri_soa, ray.o, ray.d, ray.tmin, ray.tmax)
+        elif self.geom.n_tris > 0:   # a motion scene: the block scan at ray time
+            t, prim = intersect.t_pass_brute(self.geom, ray)
         else:  # no triangles: empty accumulators (quad_t_pass starts from tmax)
             t = torch.full(ray.tmin.shape, BIG, device=ray.o.device)
             prim = torch.full(ray.tmin.shape, -1, dtype=torch.int64, device=ray.o.device)
@@ -178,25 +360,30 @@ class BvhScene(NamedTuple):
 
 
 def make_accel(geom: SceneGeom, split_method: str = "sah", force: str = "") -> BvhScene:
-    """Pick the acceleration strategy for a compiled scene (reference
-    make_accel, TPU branch): wide for >= WIDE_THRESHOLD triangles unless
-    `force == "flat"` (Accelerator "none"), flat otherwise. The
-    reference's binary-BVH traversal for more than BVH_THRESHOLD
-    triangles and quadrics is not yet ported."""
+    """Pick the acceleration strategy for a compiled scene, as the
+    reference's make_accel does on its TPU (pbrt_tpu/accel/bvh.py
+    :591-622): wide (K2) for static scenes with >= WIDE_THRESHOLD
+    triangles (any triangles with force="wide"); the binary-BVH walk
+    above BVH_THRESHOLD primitives or with force="bvh"; else the flat
+    t-pass (K1) for static scenes with triangles and the block scan at
+    ray time (t_pass_brute) for motion scenes. force="flat"
+    (Accelerator "none") skips the wide and binary trees. Motion scenes
+    reach neither kernel: that is the reference's routing."""
     n_prims = geom.n_tris + geom.n_quads
-    use_wide = force != "flat" and geom.n_tris >= WIDE_THRESHOLD
-    if not use_wide and force != "flat" and n_prims > BVH_THRESHOLD:
-        raise PbrtError(f"not yet ported: binary BVH traversal (t_pass_bvh) for "
-                        f"{n_prims} primitives with fewer than {WIDE_THRESHOLD} triangles")
-    if use_wide:
+    dev = geom.tri_v0.device
+    if (force in ("", "wide") and not geom.has_motion
+            and geom.n_tris >= (1 if force == "wide" else WIDE_THRESHOLD)):
         from pbrt_tpu_torch.accel.wide_bvh import build_wide_bvh
 
         v0, e1, e2 = (x.cpu().numpy() for x in (geom.tri_v0, geom.tri_e1, geom.tri_e2))
         quads = (quad_bounds(geom.quad_o2w.cpu().numpy(), geom.quad_params.cpu().numpy())
                  if geom.n_quads > 0 else None)
         narrow = build_bvh(v0, e1, e2, split_method, quads)
-        return BvhScene(geom=geom, wide=build_wide_bvh(narrow, v0, e1, e2, geom.tri_v0.device))
-    if geom.n_tris == 0:
+        return BvhScene(geom=geom, wide=build_wide_bvh(narrow, v0, e1, e2, dev))
+    if (force == "bvh" or (force != "flat" and n_prims > BVH_THRESHOLD)) and n_prims > 0:
+        return BvhScene(geom=geom, bvh=bvh_to(build_bvh_bounds(*prim_bounds(geom),
+                                                               split_method), dev))
+    if geom.n_tris == 0 or geom.has_motion:
         return BvhScene(geom=geom)
     from pbrt_tpu_torch.ops.intersect_cuda import TriSoA
 

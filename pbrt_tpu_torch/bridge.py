@@ -3,11 +3,15 @@
 The JAX package's compiled scene, handed over as a dict of NumPy arrays,
 becomes this package's tensors (`from_arrays`), and this package's
 compiled scene flattens to the same keys (`to_arrays`). The tests use
-it to feed both packages identical geometry (triangles and quadrics),
-lights, light CDF, wide BVH and volume regions, and to compare their
-compilers array for array. Keys are "<part>.<field>" with the field
-names of pbrt_tpu's SceneGeom (with its packs), LightsT, Distribution1D,
-WideBVH and VolumeT.
+it to feed both packages identical geometry (triangles and quadrics,
+with the motion fields of an animated scene), lights (with the image
+side structures of the goniometric, projection and infinite lights),
+light CDF, wide and binary BVHs and volume regions, and to compare
+their compilers array for array. Keys are "<part>.<field>" with the
+field names of pbrt_tpu's SceneGeom (with its packs), LightsT,
+Distribution1D, WideBVH, BVH and VolumeT; the EnvMaps are
+"env<i>.<field>" (light_idx, kind, image, and the cond/marg tables of
+the Distribution2D) with their count under "envs.count".
 
 A photon context (the maps and settings of pbrt_tpu's PhotonCtx) comes
 across by `photon_ctx_from_arrays`, with the JAX package's map layout
@@ -24,10 +28,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.accel.bvh import BVH
 from pbrt_tpu_torch.accel.intersect import Hit, SceneGeom
 from pbrt_tpu_torch.accel.wide_bvh import WideBVH
-from pbrt_tpu_torch.core.sampling import Distribution1D
-from pbrt_tpu_torch.lights.lighting import LightsT
+from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
+from pbrt_tpu_torch.lights.lighting import EnvMap, LightsT
 from pbrt_tpu_torch.materials.bsdf import BsdfParams
 from pbrt_tpu_torch.photon.map import PhotonMap, RadianceMap
 from pbrt_tpu_torch.photon.shooter import PhotonCtx
@@ -49,7 +54,13 @@ LIGHT_FIELDS = {
     "n_samples": torch.int32, "al_v0": torch.float32, "al_e1": torch.float32,
     "al_e2": torch.float32, "al_cdf": torch.float32,
 }
+# the motion fields of an animated scene's geometry (None in static
+# scenes, so not part of GEOM_FIELDS); time0 and time1 are scalars
+MOTION_FIELDS = {"tri_dv0": torch.float32, "tri_de1": torch.float32, "tri_de2": torch.float32,
+                 "quad_o2w_end": torch.float32, "quad_w2o_end": torch.float32}
 DIST_FIELDS = {"func": torch.float32, "cdf": torch.float32, "func_int": torch.float32}
+BVH_FIELDS = {"node_lo": torch.float32, "node_hi": torch.float32, "node_meta": torch.int64,
+              "prim_ids": torch.int64}
 WIDE_FIELDS = {
     "block_lo": torch.float32, "block_hi": torch.float32, "tris16": torch.float32,
     "prim_map": torch.int64, "world_lo": torch.float32, "world_hi": torch.float32,
@@ -62,16 +73,20 @@ VOLUME_FIELDS = {
 }
 PARTS = {"geom": (SceneGeom, GEOM_FIELDS), "lights": (LightsT, LIGHT_FIELDS),
          "light_dist": (Distribution1D, DIST_FIELDS), "wide": (WideBVH, WIDE_FIELDS),
-         "volume": (VolumeT, VOLUME_FIELDS)}
+         "volume": (VolumeT, VOLUME_FIELDS), "bvh": (BVH, BVH_FIELDS)}
 
 
 def from_arrays(arrays: dict, part: str, device):
-    """Build one part ("geom", "lights", "light_dist", "wide" or
-    "volume") from arrays["<part>.<field>"] on `device`; None if the
-    part is absent. A geometry without quadric keys gets none."""
+    """Build one part ("geom", "lights", "light_dist", "wide", "volume"
+    or "bvh") from arrays["<part>.<field>"] on `device`; None if the
+    part is absent. A geometry without quadric keys gets none, and one
+    with motion keys gets the motion fields and shutter times; lights
+    get the EnvMaps of "env<i>." keys."""
     cls, fields = PARTS[part]
     if f"{part}.{next(iter(fields))}" not in arrays:
         return None
+    if part == "geom":
+        fields = {**fields, **MOTION_FIELDS}
     kw = {f: torch.tensor(np.asarray(arrays[f"{part}.{f}"]), dtype=dt)
           for f, dt in fields.items() if f"{part}.{f}" in arrays}
     if part == "volume":   # its region kinds and grid dims are also kept on the host
@@ -81,7 +96,46 @@ def from_arrays(arrays: dict, part: str, device):
         kw["n_blocks"] = int(arrays["wide.n_blocks"])
     if part == "geom" and "quad_type" in kw:
         kw["quad_present"] = frozenset(int(k) for k in np.asarray(arrays["geom.quad_type"]))
+    if part == "geom" and "geom.time0" in arrays:
+        kw["time0"] = float(arrays["geom.time0"])
+        kw["time1"] = float(arrays["geom.time1"])
+    if part == "lights":
+        kw["envs"] = envs_from_arrays(arrays, device)
     return cls(**kw)
+
+
+def envs_from_arrays(arrays: dict, device) -> tuple:
+    """The EnvMaps of "env<i>." keys (see envs_to_arrays)."""
+    out = []
+    for i in range(int(arrays.get("envs.count", 0))):
+        def t(f):
+            return torch.tensor(np.asarray(arrays[f"env{i}.{f}"]), dtype=torch.float32,
+                                device=device)
+
+        dist = Distribution2D(Distribution1D(t("cond_func"), t("cond_cdf"), t("cond_func_int")),
+                              Distribution1D(t("marg_func"), t("marg_cdf"), t("marg_func_int")))
+        out.append(EnvMap(light_idx=int(arrays[f"env{i}.light_idx"]),
+                          kind=int(arrays[f"env{i}.kind"]), image=t("image"), dist=dist))
+    return tuple(out)
+
+
+def envs_to_arrays(envs, light_kind) -> dict:
+    """Flatten the EnvMaps of either package ("env<i>.<field>", with
+    "envs.count"); light_kind [L] gives each map's light kind."""
+    def a(x):
+        return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+
+    kinds = a(light_kind)
+    out = {"envs.count": np.asarray(len(envs))}
+    for i, env in enumerate(envs):
+        out.update({f"env{i}.light_idx": np.asarray(env.light_idx),
+                    f"env{i}.kind": np.asarray(kinds[env.light_idx]),
+                    f"env{i}.image": a(env.image)})
+        for part in ("cond", "marg"):
+            d = getattr(env.dist, part)
+            for f in ("func", "cdf", "func_int"):
+                out[f"env{i}.{part}_{f}"] = a(getattr(d, f))
+    return out
 
 
 def to_arrays(part: str, obj) -> dict:
@@ -90,10 +144,20 @@ def to_arrays(part: str, obj) -> dict:
     if obj is None:
         return {}
     _, fields = PARTS[part]
-    out = {f"{part}.{f}": getattr(obj, f).cpu().numpy() for f in fields
-           if getattr(obj, f) is not None}
+    if part == "geom":
+        fields = {**fields, **MOTION_FIELDS}
+
+    def a(x):
+        return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+
+    out = {f"{part}.{f}": a(getattr(obj, f)) for f in fields if getattr(obj, f) is not None}
     if part == "wide":
         out["wide.n_blocks"] = np.asarray(obj.n_blocks)
+    if part == "geom" and obj.has_motion:
+        out["geom.time0"] = np.asarray(obj.time0)
+        out["geom.time1"] = np.asarray(obj.time1)
+    if part == "lights" and obj.envs:
+        out.update(envs_to_arrays(obj.envs, obj.kind))
     return out
 
 
@@ -104,6 +168,7 @@ def scene_to_arrays(scene) -> dict:
     out.update(to_arrays("lights", scene.lights))
     out.update(to_arrays("light_dist", scene.light_dist))
     out.update(to_arrays("wide", scene.accel.wide))
+    out.update(to_arrays("bvh", scene.accel.bvh))
     out.update(to_arrays("volume", scene.volume))
     return out
 

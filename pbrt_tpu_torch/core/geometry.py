@@ -7,6 +7,7 @@ written out componentwise in the reference's operation order.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -47,6 +48,15 @@ def coordinate_system(v1):
         torch.stack([zero, z * inv_a, -y * inv_a], -1),
     )
     return v2, cross(v1, v2)
+
+
+def spherical_theta(v):
+    return torch.arccos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v):
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + 2.0 * math.pi, p)
 
 
 class Ray(NamedTuple):

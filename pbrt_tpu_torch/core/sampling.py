@@ -1,20 +1,23 @@
 """Monte Carlo sampling substrate, vectorized over wavefront batches.
 
 Port of the parts of pbrt_tpu/core/sampling.py the ported paths use:
-Distribution1D (light pick), the sphere, cone, concentric disk and
-cosine hemisphere warps, triangle sampling, the power heuristic, the
-Henyey-Greenstein phase function, and the base-2 low-discrepancy
-points. uint32 arithmetic is carried in int64 tensors masked to 32 bits
-after every step, so the bit streams equal the JAX package's.
+Distribution1D (light pick) and Distribution2D (environment-map
+importance), the sphere, cone, concentric disk and cosine hemisphere
+warps, triangle sampling, the power heuristic, the Henyey-Greenstein
+phase function, the base-2 low-discrepancy points and the Halton
+radical inverse. uint32 arithmetic is carried in int64 tensors masked
+to 32 bits after every step, so the bit streams equal the JAX package's.
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 INV_PI = 1.0 / math.pi
+INV_TWOPI = 1.0 / (2.0 * math.pi)
 INV_FOURPI = 1.0 / (4.0 * math.pi)
 M32 = 0xFFFFFFFF
 
@@ -50,6 +53,20 @@ class Distribution1D(NamedTuple):
     def count(self):
         return self.func.shape[-1]
 
+    def sample_continuous(self, u):
+        """u: [...] -> (x in [0,1), pdf, offset int64). The segment is
+        the count of u >= cdf[1:], found by a sorted search."""
+        n = self.count
+        off = torch.clamp(torch.searchsorted(self.cdf[1:].contiguous(), u.contiguous(),
+                                             right=True), 0, n - 1)
+        c0 = self.cdf[off]
+        c1 = self.cdf[off + 1]
+        du = torch.where(c1 > c0, (u - c0) / torch.clamp(c1 - c0, min=1e-30),
+                         torch.zeros((), device=u.device))
+        x = (off + du) / n
+        pdf = self.func[off] / torch.clamp(self.func_int, min=1e-30)
+        return x, pdf, off
+
     def sample_discrete(self, u):
         """u: [...] -> (offset, pmf)."""
         n = self.count
@@ -61,6 +78,83 @@ class Distribution1D(NamedTuple):
     def pdf_discrete(self, off):
         f = self.func[off.long()]
         return f / torch.clamp(self.func_int * self.count, min=1e-30)
+
+
+def dist1d_host(func: np.ndarray):
+    """Distribution1D tables (func, cdf, func_int) of func [..., n] on
+    the host: float32 throughout, the running sums taken left to right
+    along the last axis (np.cumsum), as Distribution1D.make does them."""
+    func = np.asarray(func, np.float32)
+    n = func.shape[-1]
+    integ = np.cumsum(func, axis=-1, dtype=np.float32) / np.float32(n)
+    func_int = integ[..., -1]
+    zero = np.zeros(func.shape[:-1] + (1,), np.float32)
+    safe = func_int[..., None] > 0
+    cdf = np.where(safe,
+                   np.concatenate([zero, integ], -1) / np.maximum(func_int[..., None],
+                                                                 np.float32(1e-30)),
+                   np.linspace(0.0, 1.0, n + 1, dtype=np.float32))
+    return func, cdf.astype(np.float32), func_int.astype(np.float32)
+
+
+class Distribution2D(NamedTuple):
+    """2D piecewise-constant distribution (environment-map importance,
+    reference montecarlo.h:142): cond over u per v row (func [nv, nu]),
+    marg over v (func [nv])."""
+
+    cond: Distribution1D
+    marg: Distribution1D
+
+    @staticmethod
+    def make(func, device):
+        """Tables built on the host (dist1d_host), then moved to device."""
+        cf, cc, ci = dist1d_host(func)
+        mf, mc, mi = dist1d_host(ci)
+
+        def dev(x):
+            return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+        return Distribution2D(Distribution1D(dev(cf), dev(cc), dev(ci)),
+                              Distribution1D(dev(mf), dev(mc), dev(mi)))
+
+    def sample_continuous(self, u0, u1):
+        """-> ((u, v), pdf). The column within the sampled row is the
+        count of u0 >= row_cdf[1:], found by one sorted search over int64
+        keys (row, bits of the CDF value): both are >= 0 and each row's
+        CDF is nondecreasing, so the keys ascend over the whole table,
+        and no row is gathered per sample."""
+        v, pdf_v, iv = self.marg.sample_continuous(u1)
+        nv, nu = self.cond.func.shape
+        cdf = self.cond.cdf
+        off = self.column(iv, u0)
+        c0 = cdf[iv, off]
+        c1 = cdf[iv, off + 1]
+        f = self.cond.func[iv, off]
+        du = torch.where(c1 > c0, (u0 - c0) / torch.clamp(c1 - c0, min=1e-30),
+                         torch.zeros((), device=u0.device))
+        u = (off + du) / nu
+        pdf_u = f / torch.clamp(self.cond.func_int[iv], min=1e-30)
+        return (u, v), pdf_u * pdf_v
+
+    def column(self, iv, u0):
+        """The segment of u0 in row iv of the conditional CDFs: the
+        count of u0 >= cdf[iv, 1:] (clipped to [0, nu - 1])."""
+        nv, nu = self.cond.func.shape
+        rows = torch.arange(nv, device=u0.device)[:, None]
+        keys = ((rows << 32) | f32_bits(self.cond.cdf[:, 1:])).reshape(-1)
+        j = torch.searchsorted(keys, (iv << 32) | f32_bits(u0), right=True)
+        return torch.clamp(j - iv * nu, 0, nu - 1)
+
+    def pdf(self, u, v):
+        nv, nu = self.cond.func.shape
+        iu = torch.clamp((u * nu).to(torch.int64), 0, nu - 1)
+        iv = torch.clamp((v * nv).to(torch.int64), 0, nv - 1)
+        return self.cond.func[iv, iu] / torch.clamp(self.marg.func_int, min=1e-30)
+
+
+def f32_bits(x):
+    """Bits of float32 x >= 0 as int64 (they order as the values)."""
+    return x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -177,3 +271,32 @@ def sobol2(n, scramble):
         n = n >> 1
         v = v ^ (v >> 1)
     return u32_to_unit(result)
+
+
+# Halton: radical inverse in the first 32 prime bases (montecarlo.h:221)
+PRIMES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59, 61, 67, 71,
+          73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127, 131)
+
+
+def radical_inverse(n, base: int):
+    """Radical inverse of integer tensor n (int32 values) in `base`: 32
+    digits accumulated in float32 in the JAX package's compiled order.
+    XLA turns its division of the digit weight by `base` into a product
+    with the float32 reciprocal, and contracts each digit's multiply-add
+    into one fused multiply-add; the fused step is done here in float64
+    (digit times weight is exact there) and rounded once to float32."""
+    n = n.to(torch.int64)
+    val = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    inv_bi = torch.tensor(1.0 / base, dtype=torch.float32, device=n.device)
+    recip = torch.tensor(1.0 / base, dtype=torch.float32, device=n.device)
+    for _ in range(32):
+        val = ((n % base).to(torch.float64) * inv_bi.to(torch.float64)
+               + val.to(torch.float64)).to(torch.float32)
+        n = n // base
+        inv_bi = inv_bi * recip
+    return val
+
+
+def halton_nd(n, dim: int):
+    """First `dim` Halton dimensions of index batch n -> [..., dim]."""
+    return torch.stack([radical_inverse(n, PRIMES[d]) for d in range(dim)], -1)

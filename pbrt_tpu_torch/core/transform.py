@@ -4,7 +4,11 @@ Port of pbrt_tpu/core/transform.py. The host `Transform` is NumPy
 (float64, with cached inverse); the batched applies work on NumPy
 arrays and torch tensors alike. The applies are explicit component
 mul/adds (not matmuls), as in the reference, so they round op for op
-like it. Animated transforms (motion blur) are not yet ported.
+like it. `AnimatedTransform` is the two-keyframe transform of motion
+blur (decomposition into translation, rotation quaternion and scale,
+slerped in `interpolate`); the renderer itself moves geometry by a
+linear interpolation of the raw keyframe matrices, as the JAX package
+does (accel/intersect.py SceneGeom.quad_xforms_at).
 """
 from __future__ import annotations
 
@@ -135,6 +139,11 @@ class Transform:
         return Transform(c2w)
 
     @staticmethod
+    def orthographic(znear, zfar) -> "Transform":
+        return Transform.scale(1.0, 1.0, 1.0 / (zfar - znear)) * Transform.translate(
+            [0.0, 0.0, -znear])
+
+    @staticmethod
     def perspective(fov_deg, znear, zfar) -> "Transform":
         persp = np.array(
             [
@@ -147,3 +156,131 @@ class Transform:
         )
         inv_tan = 1.0 / np.tan(np.deg2rad(fov_deg) / 2.0)
         return Transform.scale(inv_tan, inv_tan, 1.0) * Transform(persp)
+
+
+# ---------------------------------------------------------------------------
+# Quaternions ([..., 4] as (x, y, z, w))
+
+def quat_from_matrix(m) -> np.ndarray:
+    """Rotation matrix (3x3 or 4x4 upper-left) -> quaternion [x,y,z,w]."""
+    m = np.asarray(m, np.float64)[:3, :3]
+    tr = np.trace(m)
+    q = np.zeros(4)
+    if tr > 0.0:
+        s = np.sqrt(tr + 1.0)
+        q[3] = s / 2.0
+        s = 0.5 / s
+        q[0] = (m[2, 1] - m[1, 2]) * s
+        q[1] = (m[0, 2] - m[2, 0]) * s
+        q[2] = (m[1, 0] - m[0, 1]) * s
+    else:
+        i = int(np.argmax([m[0, 0], m[1, 1], m[2, 2]]))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = np.sqrt(max(m[i, i] - (m[j, j] + m[k, k]) + 1.0, 0.0))
+        qv = np.zeros(3)
+        qv[i] = s * 0.5
+        if s != 0.0:
+            s = 0.5 / s
+        q[3] = (m[k, j] - m[j, k]) * s
+        qv[j] = (m[j, i] + m[i, j]) * s
+        qv[k] = (m[k, i] + m[i, k]) * s
+        q[:3] = qv
+    return q
+
+
+def quat_to_matrix(q):
+    """Quaternion [..., 4] -> rotation matrix [..., 3, 3] acting on
+    column vectors (the transpose of the reference's stored layout)."""
+    xp = torch if isinstance(q, torch.Tensor) else np
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    m = xp.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y + z * w), 2 * (x * z - y * w),
+        2 * (x * y - z * w), 1 - 2 * (x * x + z * z), 2 * (y * z + x * w),
+        2 * (x * z + y * w), 2 * (y * z - x * w), 1 - 2 * (x * x + y * y),
+    ], -1).reshape(tuple(q.shape[:-1]) + (3, 3))
+    return xp.swapaxes(m, -1, -2)
+
+
+def slerp(t, q1, q2):
+    """Spherical lerp (reference core/quaternion.cpp Slerp), in float32
+    torch."""
+    t, q1, q2 = (torch.as_tensor(x, dtype=torch.float32) for x in (t, q1, q2))
+    cos_theta = torch.sum(q1 * q2, -1)
+    q2 = torch.where((cos_theta < 0.0)[..., None], -q2, q2)
+    cos_theta = torch.abs(cos_theta)
+    theta = torch.arccos(torch.clamp(cos_theta, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    near = cos_theta > 0.9995
+    safe = torch.where(near, torch.ones_like(sin_theta), sin_theta)
+    w1 = torch.where(near, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    w2 = torch.where(near, t, torch.sin(t * theta) / safe)
+    q = w1[..., None] * q1 + w2[..., None] * q2
+    return q / torch.sqrt(torch.sum(q * q, -1, keepdim=True))
+
+
+def decompose(m):
+    """Affine 4x4 -> (T [3], R quat [4], S [3, 3]) by polar
+    decomposition, iteratively averaging with the inverse transpose
+    (reference core/transform.cpp AnimatedTransform::Decompose)."""
+    m = np.asarray(m, np.float64)
+    T = m[:3, 3].copy()
+    M = m[:3, :3].copy()
+    R = M.copy()
+    for _ in range(100):
+        Rnext = 0.5 * (R + np.linalg.inv(R.T))
+        if np.max(np.abs(Rnext - R)) < 1e-10:
+            R = Rnext
+            break
+        R = Rnext
+    S = np.linalg.inv(R) @ M
+    return T, quat_from_matrix(R), S
+
+
+class AnimatedTransform:
+    """Two-keyframe animated transform (reference core/transform.h:299):
+    both keyframes and their times, decomposed once on the host."""
+
+    def __init__(self, t0: Transform, time0: float, t1: Transform, time1: float):
+        self.start, self.end = t0, t1
+        self.time0, self.time1 = float(time0), float(time1)
+        self.actually_animated = not np.allclose(t0.m, t1.m)
+        self.T0, self.R0, self.S0 = decompose(t0.m)
+        self.T1, self.R1, self.S1 = decompose(t1.m)
+
+    def interpolate(self, time):
+        """time: float or tensor [...] -> float32 matrices [..., 4, 4]
+        (torch): T and S lerped, R slerped."""
+        time = torch.as_tensor(time, dtype=torch.float32)
+        if not self.actually_animated:
+            return torch.as_tensor(self.start.m, dtype=torch.float32).expand(
+                tuple(time.shape) + (4, 4)).clone()
+        dt = torch.clamp((time - self.time0) / (self.time1 - self.time0), 0.0, 1.0)
+
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32)
+
+        T = (1.0 - dt)[..., None] * f32(self.T0) + dt[..., None] * f32(self.T1)
+        R = slerp(dt, f32(self.R0), f32(self.R1))
+        S = (1.0 - dt)[..., None, None] * f32(self.S0) + dt[..., None, None] * f32(self.S1)
+        m = torch.zeros(tuple(dt.shape) + (4, 4), dtype=torch.float32)
+        m[..., :3, :3] = quat_to_matrix(R) @ S
+        m[..., :3, 3] = T
+        m[..., 3, 3] = 1.0
+        return m
+
+    def motion_bounds(self, lo, hi, nsteps: int = 16):
+        """Conservative bbox of a bbox over the time interval (host)."""
+        lo = np.asarray(lo, np.float64)
+        hi = np.asarray(hi, np.float64)
+        corners = np.array(
+            [[lo[0], lo[1], lo[2]], [hi[0], lo[1], lo[2]], [lo[0], hi[1], lo[2]],
+             [lo[0], lo[1], hi[2]], [hi[0], hi[1], lo[2]], [hi[0], lo[1], hi[2]],
+             [lo[0], hi[1], hi[2]], [hi[0], hi[1], hi[2]]])
+        out_lo = np.full(3, np.inf)
+        out_hi = np.full(3, -np.inf)
+        for i in range(nsteps):
+            t = self.time0 + (self.time1 - self.time0) * i / max(nsteps - 1, 1)
+            pts = xform_point_affine(self.interpolate(t).numpy(), corners)
+            out_lo = np.minimum(out_lo, pts.min(axis=0))
+            out_hi = np.maximum(out_hi, pts.max(axis=0))
+        return out_lo, out_hi

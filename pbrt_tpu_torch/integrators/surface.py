@@ -6,8 +6,10 @@ path.cpp:52-123, directlighting.cpp, whitted.cpp:40,
 ambientocclusion.cpp): fixed-depth loops over ray batches with alive
 masks. In `path`, per vertex one light is sampled by the power CDF
 (estimate_direct) and the BSDF continuation sample is reused as the
-second MIS strategy: emission found at the next vertex is weighted by
-power_heuristic(bsdf_pdf, light_pdf).
+second MIS strategy: emission found at the next vertex (an area light,
+or an environment map for rays that escape) is weighted by
+power_heuristic(bsdf_pdf, light_pdf). directlighting and whitted add
+the environment of escaped rays unweighted; ambientocclusion ignores it.
 
 transmittance_fn(p, wi, dist) -> [N, S], when given, attenuates each
 light sample by the participating medium (renderers/driver.py).
@@ -27,7 +29,13 @@ from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.geometry import Ray, coordinate_system, cross, dot, normalize
 from pbrt_tpu_torch.core.sampling import cosine_sample_hemisphere, power_heuristic
 from pbrt_tpu_torch.accel.intersect import Hit
-from pbrt_tpu_torch.lights.lighting import area_emission, area_tri_pdf, sample_light
+from pbrt_tpu_torch.lights.lighting import (
+    area_emission,
+    area_tri_pdf,
+    env_le,
+    light_pdf,
+    sample_light,
+)
 from pbrt_tpu_torch.materials.bsdf import (
     Frame,
     Lobes,
@@ -140,6 +148,28 @@ def _add_hit_emission(scene, st: PathState, hit: Hit, first: bool):
                               torch.zeros((), device=dev))
 
 
+def _add_escape_emission(scene, st: PathState, escaped, first: bool):
+    """Environment-map radiance for rays that left the scene; after the
+    first bounce MIS-weighted against the env lights' sampling pdf
+    unless the previous bounce was specular."""
+    if scene.lights is None or not scene.lights.envs:
+        return st.L
+    dev = st.L.device
+    le = env_le(scene.lights, st.ray_d)
+    if first:
+        w = torch.ones(escaped.shape, device=dev)
+    else:
+        lp = torch.zeros(escaped.shape, device=dev)
+        for env in scene.lights.envs:
+            li = torch.full(escaped.shape, env.light_idx, dtype=torch.int64, device=dev)
+            lp_e = light_pdf(scene.lights, li, st.ray_o, normalize(st.ray_d))
+            lp = lp + lp_e * scene.light_dist.pdf_discrete(li)
+        w = torch.where(st.prev_specular, torch.ones((), device=dev),
+                        power_heuristic(1.0, st.prev_bsdf_pdf, 1.0, lp))
+    add = st.throughput * le * w[..., None]
+    return st.L + torch.where((escaped & st.alive)[..., None], add, torch.zeros((), device=dev))
+
+
 def li_path(scene, ray: Ray, pixel, sidx, max_depth: int = 5, seed: int = 0,
             rr_start: int = 3, transmittance_fn=None):
     """Path-traced radiance for a ray batch (reference integrators/
@@ -181,6 +211,7 @@ def _li_path_impl(scene, ray: Ray, u_fn, max_depth: int, rr_start: int, transmit
                                               torch.full((), -1.0, device=dev)), tm),
                               coherent=depth == 0)
         st = st._replace(L=_add_hit_emission(scene, st, hit, depth == 0))
+        st = st._replace(L=_add_escape_emission(scene, st, st.alive & ~hit.valid, depth == 0))
         alive = st.alive & hit.valid
         if depth == max_depth:
             break
@@ -284,6 +315,7 @@ def _li_direct_or_whitted(scene, ray, pixel, sidx, max_depth, seed, strategy,
                                               torch.full((), -1.0, device=dev)), tm),
                               coherent=depth == 0)
         st = st._replace(L=_add_hit_emission(scene, st, hit, depth == 0))
+        st = st._replace(L=_add_escape_emission(scene, st, st.alive & ~hit.valid, True))
         alive = st.alive & hit.valid
         if depth == max_depth:
             break

@@ -19,8 +19,11 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="quarter resolution / one sample per pixel for fast iteration")
     ap.add_argument("--quiet", action="store_true")
-    ap.add_argument("--verbose", action="store_true")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print the statistics counters at WorldEnd")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint", default="",
+                    help="film checkpoint file (npz) for crash-resumable renders")
     ap.add_argument("--tile-samples", type=int, default=0,
                     help="camera samples per wavefront tile (0 = 65536; 16384 for "
                          "the photon integrators)")
@@ -47,6 +50,7 @@ def main(argv=None):
         "quiet": args.quiet,
         "verbose": args.verbose,
         "seed": args.seed,
+        "checkpoint": args.checkpoint or None,
         "tile_samples": args.tile_samples,
     })
     try:

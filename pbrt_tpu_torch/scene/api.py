@@ -9,9 +9,8 @@ plugin objects, statements append host-side records
 (pbrt_tpu_torch.scene.records) that the scene compiler lowers to tensors.
 
 Port of pbrt_tpu/scene/api.py, carried over unchanged except that
-WorldEnd calls this package's render driver and an animated transform
-is recorded as its end-of-shutter Transform (motion blur is not yet
-ported; the compiler rejects it).
+WorldEnd calls this package's render driver (and prints the probes
+counters under --verbose).
 """
 from __future__ import annotations
 
@@ -22,7 +21,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from pbrt_tpu_torch.core.error import PbrtError, severe, warning
-from pbrt_tpu_torch.core.transform import Transform
+from pbrt_tpu_torch.core.transform import AnimatedTransform, Transform
 from pbrt_tpu_torch.scene.paramset import ParamSet, TextureParams
 from pbrt_tpu_torch.scene.records import (
     AreaLightRecord,
@@ -413,7 +412,12 @@ def pbrt_shape(name, params):
     animated = None
     o2w = _state.cur_transform.t[0]
     if _state.cur_transform.is_animated():
-        animated = _state.cur_transform.t[1]
+        animated = AnimatedTransform(
+            _state.cur_transform.t[0],
+            _state.render_options.transform_start_time,
+            _state.cur_transform.t[1],
+            _state.render_options.transform_end_time,
+        )
     # "alpha" masking param (reference shapes/trianglemesh.cpp:379-437):
     # either a named float texture or a constant float
     alpha_tex = None
@@ -486,7 +490,12 @@ def pbrt_object_instance(name):
         return
     animated = None
     if _state.cur_transform.is_animated():
-        animated = _state.cur_transform.t[1]
+        animated = AnimatedTransform(
+            _state.cur_transform.t[0],
+            _state.render_options.transform_start_time,
+            _state.cur_transform.t[1],
+            _state.render_options.transform_end_time,
+        )
     _state.render_options.instances.append(
         InstanceRecord(name=name, shapes=shapes, i2w=_state.cur_transform.t[0], animated=animated)
     )
@@ -506,10 +515,13 @@ def pbrt_world_end(render: bool = True):
         _state.pushed_active_bits.pop()
     result = None
     if render:
+        from pbrt_tpu_torch.core import probes
         from pbrt_tpu_torch.renderers.driver import render_scene
 
         result = render_scene(_state.render_options, _state.options)
         _state.output = result
+        if _state.options.get("verbose"):
+            probes.print_counters()  # reference api.cpp:1186 ProbesPrint
     _state.state = STATE_OPTIONS_BLOCK
     _state.graphics_state = GraphicsState()
     _state.cur_transform = TransformSet()

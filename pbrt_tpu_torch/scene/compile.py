@@ -1,9 +1,11 @@
 """Scene compiler: host records -> device tensors.
 
 Port of the slice of pbrt_tpu/scene/compile.py the ported paths need:
-triangle meshes and quadrics with alpha masks, point, spot, distant and
-diffuse area lights (on meshes and quadrics), volume regions, every
-material kind with any texture, measured BRDF tables, and bump mapping.
+triangle meshes and quadrics with alpha masks, animated (motion-blurred)
+shapes and instances, every light kind (point, spot, goniometric,
+projection, distant, infinite with its importance table, and diffuse
+area lights on meshes and quadrics), volume regions, every material
+kind with any texture, measured BRDF tables, and bump mapping.
 Everything else a scene may use that the JAX package knows fails here
 with "not yet ported: <name>" — the compiler never substitutes
 something else.
@@ -18,11 +20,21 @@ import torch
 
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.error import PbrtError, info, warning
-from pbrt_tpu_torch.core.sampling import Distribution1D
+from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
 from pbrt_tpu_torch.core.transform import Transform, xform_point_affine
 from pbrt_tpu_torch.core.geometry import Ray, cross, normalize
 from pbrt_tpu_torch.accel.intersect import Hit, SceneGeom, make_quad_pack, make_tri_pack
-from pbrt_tpu_torch.lights.lighting import L_AREA, L_DISTANT, L_POINT, L_SPOT, LightsT
+from pbrt_tpu_torch.lights.lighting import (
+    L_AREA,
+    L_DISTANT,
+    L_GONIO,
+    L_INFINITE,
+    L_POINT,
+    L_PROJECTION,
+    L_SPOT,
+    EnvMap,
+    LightsT,
+)
 from pbrt_tpu_torch.materials.bsdf import BsdfParams
 from pbrt_tpu_torch.materials.registry import KIND_ID
 from pbrt_tpu_torch.scene.records import MaterialRecord, RenderOptions, ShapeRecord
@@ -32,7 +44,6 @@ from pbrt_tpu_torch.volumes.registry import VolumeT, build_volumes
 
 S = spec.N_BINS
 
-_LIGHTS_NOT_PORTED = ("goniometric", "projection", "infinite", "exinfinite")
 # names the JAX package renders and this package does not yet; names
 # that neither knows warn and fall back in the render driver
 _SURF_NOT_PORTED = ("igi", "irradiancecache", "dipolesubsurface", "diffuseprt", "glossyprt",
@@ -151,18 +162,31 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
     alpha_textures: list = []          # unique alpha textures/constants
     alpha_index: Dict[int, int] = {}   # id(tex) -> row
     quads = []  # (QuadricData, mat, light)
+    tri_dv0, tri_de1, tri_de2 = [], [], []   # motion-blur vertex deltas
+    quad_o2w_end = []
+    any_motion = [False]
 
     # Area lights get one LightsT row per emitting shape record.
     area_rows = []
     al_v0, al_e1, al_e2, al_area = [], [], [], []
 
-    def add_shape_record(srec: ShapeRecord, extra_xform: Optional[Transform] = None):
-        if srec.animated is not None:
-            not_ported("motion blur (animated transform)")
+    def add_shape_record(srec: ShapeRecord, extra_xform: Optional[Transform] = None,
+                         extra_xform_end: Optional[Transform] = None):
         o2w = srec.o2w if extra_xform is None else (extra_xform * srec.o2w)
         sd = make_shape(srec.kind, srec.params, o2w, o2w.inverse(), srec.reverse_orientation)
         if sd is None:
             return
+        # end-of-shutter transform (reference TransformedPrimitive,
+        # core/primitive.h:115-117): the shape's and/or the instance's
+        # animated CTM
+        base_end = srec.animated.end if srec.animated is not None else srec.o2w
+        xe = extra_xform_end if extra_xform_end is not None else extra_xform
+        o2w_end = base_end if xe is None else (xe * base_end)
+        animated = not np.allclose(o2w_end.m, o2w.m, atol=1e-12)
+        if animated:
+            any_motion[0] = True
+        # world delta: v_end = delta @ v_start for the baked vertices
+        delta = (o2w_end.m @ np.linalg.inv(o2w.m)).astype(np.float64)
         mi = _material_index(srec.material, materials, mat_index)
         # alpha-texture masking row (reference trianglemesh.cpp:379-437)
         ai = -1
@@ -194,6 +218,15 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
             tri_v0.append(v0)
             tri_e1.append(v1 - v0)
             tri_e2.append(v2 - v0)
+            if animated:
+                v0e, v1e, v2e = (xform_point_affine(delta, v).astype(np.float32)
+                                 for v in (v0, v1, v2))
+                tri_dv0.append(v0e - v0)
+                tri_de1.append((v1e - v0e) - (v1 - v0))
+                tri_de2.append((v2e - v0e) - (v2 - v0))
+            else:
+                for acc in (tri_dv0, tri_de1, tri_de2):
+                    acc.append(np.zeros_like(v0))
             if tri.n is not None:
                 tri_n.append(np.stack([tri.n[idx[:, 0]], tri.n[idx[:, 1]], tri.n[idx[:, 2]]], 1))
                 tri_has_n.append(np.ones(len(idx), bool))
@@ -219,6 +252,8 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
                 area_rows[li]["area"] += float(areas.sum())
         for q in sd.quadrics:
             quads.append((q, mi, li))
+            quad_o2w_end.append((delta @ q.o2w).astype(np.float32) if animated
+                                else np.asarray(q.o2w, np.float32))
             if li < 0:
                 continue
             r = float(q.params[0])
@@ -245,10 +280,9 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
     for srec in ro.shapes:
         add_shape_record(srec)
     for inst in ro.instances:
-        if inst.animated is not None:
-            not_ported("motion blur (animated instance)")
+        inst_end = inst.animated.end if inst.animated is not None else None
         for srec in inst.shapes:
-            add_shape_record(srec, extra_xform=inst.i2w)
+            add_shape_record(srec, extra_xform=inst.i2w, extra_xform_end=inst_end)
 
     if tri_v0:
         TV0 = np.concatenate(tri_v0).astype(np.float32)
@@ -266,10 +300,22 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
         TUV = np.zeros((0, 3, 2), np.float32)
         TM = TL = np.zeros((0,), np.int32)
 
-    # world bound over the triangles and each quadric's transformed
-    # object-space box corners (conservative)
+    motion = any_motion[0]
+    if motion and tri_v0:
+        TDV0, TDE1, TDE2 = (np.concatenate(x).astype(np.float32)
+                            for x in (tri_dv0, tri_de1, tri_de2))
+    else:
+        TDV0 = TDE1 = TDE2 = None
+    Q_end = np.stack(quad_o2w_end) if (motion and quads) else None
+    Q_w2o_end = (np.stack([np.linalg.inv(m.astype(np.float64)).astype(np.float32)
+                           for m in quad_o2w_end]) if Q_end is not None else None)
+
+    # world bound over the triangles (at both shutter ends) and each
+    # quadric's transformed object-space box corners (conservative)
     pts = [TV0, TV0 + TE1, TV0 + TE2]
-    for q, _, _ in quads:
+    if TDV0 is not None:
+        pts += [TV0 + TDV0, TV0 + TDV0 + TE1 + TDE1, TV0 + TDV0 + TE2 + TDE2]
+    for qi, (q, _, _) in enumerate(quads):
         r = abs(float(q.params[0]))
         zmin, zmax = float(q.params[1]), float(q.params[2])
         sph = q.qtype == QUAD_SPHERE
@@ -278,6 +324,8 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
         corners = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
                             for z in (lo[2], hi[2])])
         pts.append(xform_point_affine(q.o2w, corners).astype(np.float32))
+        if motion:
+            pts.append(xform_point_affine(quad_o2w_end[qi], corners).astype(np.float32))
     pts = [p for p in pts if len(p)]
     allp = np.concatenate(pts) if pts else np.zeros((1, 3), np.float32)
     world_lo = allp.min(0) - 1e-3
@@ -301,12 +349,19 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
         tri_v0=dev(TV0), tri_e1=dev(TE1), tri_e2=dev(TE2), tri_n=dev(TN),
         tri_has_n=dev(THN), tri_uv=dev(TUV), tri_mat=dev(TM), tri_light=dev(TL),
         world_lo=dev(world_lo, torch.float32), world_hi=dev(world_hi, torch.float32),
-        tri_pack=dev(make_tri_pack(TV0, TE1, TE2, TN, TUV, THN, TM, TL)),
+        tri_pack=dev(make_tri_pack(TV0, TE1, TE2, TN, TUV, THN, TM, TL, TDV0, TDE1, TDE2)),
         quad_type=dev(Q_type), quad_o2w=dev(Q_o2w), quad_w2o=dev(Q_w2o),
         quad_params=dev(Q_params), quad_mat=dev(Q_mat), quad_light=dev(Q_light),
         quad_flip=dev(Q_flip),
-        quad_pack=dev(make_quad_pack(Q_o2w, Q_w2o, Q_params, Q_type, Q_flip, Q_mat, Q_light)),
+        quad_pack=dev(make_quad_pack(Q_o2w, Q_w2o, Q_params, Q_type, Q_flip, Q_mat, Q_light,
+                                     Q_end, Q_w2o_end)),
         quad_present=frozenset(int(k) for k in Q_type),
+        tri_dv0=None if TDV0 is None else dev(TDV0),
+        tri_de1=None if TDE1 is None else dev(TDE1),
+        tri_de2=None if TDE2 is None else dev(TDE2),
+        quad_o2w_end=None if Q_end is None else dev(Q_end),
+        quad_w2o_end=None if Q_w2o_end is None else dev(Q_w2o_end),
+        time0=float(ro.transform_start_time), time1=float(ro.transform_end_time),
     )
     lights, light_dist = _build_lights(ro, area_rows, al_v0, al_e1, al_e2, al_area,
                                        world_lo, world_hi, device)
@@ -345,6 +400,8 @@ def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area,
     world_c = 0.5 * (world_lo + world_hi)
     world_rad = float(np.linalg.norm(world_hi - world_c)) + 1e-3
 
+    env_specs = []  # (row index, rgb image, kind)
+
     def add(kind, xform: Transform, spectrum, pr, pw, ns=1):
         kinds.append(kind)
         l2w.append(xform.m.astype(np.float32))
@@ -354,13 +411,13 @@ def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area,
         params.append(p12)
         power.append(np.asarray(pw, np.float32))
         nsamples.append(ns)
+        return len(kinds) - 1
 
     for rec in ro.lights:
         p = rec.params
         name = rec.kind
-        if name in _LIGHTS_NOT_PORTED:
-            not_ported(f'light "{name}"')
-        if name not in ("point", "spot", "distant"):
+        if name not in ("point", "spot", "goniometric", "projection", "distant", "infinite",
+                        "exinfinite"):
             warning(f'Light "{name}" unknown.')
             continue
         ns = p.find_one_int("nsamples", 1)
@@ -388,7 +445,28 @@ def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area,
             cf = np.cos(np.deg2rad(cone - delta))
             add(L_SPOT, rec.l2w * Transform(m), I, [cw, cf],
                 I * 2.0 * np.pi * (1.0 - 0.5 * (cw + cf)), ns)
-        else:  # distant
+        elif name == "goniometric":
+            I = np.asarray(p.find_one_spectrum("I", ones), np.float32) * sc
+            img = _load_light_image(p.find_one_filename("mapname", ""))
+            row = add(L_GONIO, rec.l2w, I, [], 4.0 * np.pi * I * (img[1] if img else 1.0), ns)
+            if img is not None:
+                env_specs.append((row, img[0], L_GONIO))
+        elif name == "projection":
+            I = np.asarray(p.find_one_spectrum("I", ones), np.float32) * sc
+            fov = p.find_one_float("fov", 45.0)
+            img = _load_light_image(p.find_one_filename("mapname", ""))
+            aspect = (img[0].shape[1] / img[0].shape[0]) if img else 1.0
+            t = np.tan(np.deg2rad(fov) / 2.0)
+            if aspect > 1.0:
+                x0, x1, y0, y1 = -t * aspect, t * aspect, -t, t
+            else:
+                x0, x1, y0, y1 = -t, t, -t / aspect, t / aspect
+            cw = np.cos(np.arctan(t * np.hypot(1.0, 1.0 / (1.0 if aspect <= 1 else aspect))))
+            row = add(L_PROJECTION, rec.l2w, I, [cw, x0, x1, y0, y1, 1e-3],
+                      2.0 * np.pi * (1.0 - cw) * I, ns)
+            if img is not None:
+                env_specs.append((row, img[0], L_PROJECTION))
+        elif name == "distant":
             L = np.asarray(p.find_one_spectrum("L", ones), np.float32) * sc
             frm = np.asarray(p.find_one_point("from", [0, 0, 0]), np.float64)
             to = np.asarray(p.find_one_point("to", [0, 0, 1]), np.float64)
@@ -396,6 +474,13 @@ def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area,
             dn = rec.l2w.vector(d / max(np.linalg.norm(d), 1e-12))
             add(L_DISTANT, Transform(), L, list(np.asarray(dn, np.float64)),
                 L * np.pi * world_rad * world_rad, ns)
+        else:  # infinite / exinfinite
+            L = np.asarray(p.find_one_spectrum("L", ones), np.float32) * sc
+            img = _load_light_image(p.find_one_filename("mapname", ""))
+            row = add(L_INFINITE, rec.l2w, L, [],
+                      np.pi * world_rad * world_rad * L * (img[1] if img else 1.0), ns)
+            env_specs.append((row, img[0] if img else np.ones((1, 1, 3), np.float32),
+                              L_INFINITE))
         p.report_unused(f'in light "{name}"')
 
     for row in area_rows:
@@ -427,6 +512,15 @@ def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area,
     def dev(x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device).contiguous()
 
+    envs = []
+    for row, img, kind in env_specs:
+        img_spec = spec.from_rgb(img.astype(np.float32))
+        # importance: luminance * sin(theta) over the rows (reference infinite.cpp:85)
+        h = img.shape[0]
+        sin_t = np.sin(np.pi * (np.arange(h) + 0.5) / h)
+        envs.append(EnvMap(light_idx=row, kind=kind, image=dev(np.asarray(img_spec, np.float32)),
+                           dist=Distribution2D.make(spec.y(img_spec) * sin_t[:, None], device)))
+
     L2W = np.stack(l2w)
     lights = LightsT(
         kind=dev(kinds, torch.int32), l2w=dev(L2W),
@@ -434,11 +528,28 @@ def _build_lights(ro: RenderOptions, area_rows, al_v0, al_e1, al_e2, al_area,
         spectra=dev(np.stack(spectra)), params=dev(np.stack(params)),
         power=dev(np.stack(power)), n_samples=dev(nsamples, torch.int32),
         al_v0=dev(AV0), al_e1=dev(AE1), al_e2=dev(AE2), al_cdf=dev(ACDF),
+        envs=tuple(envs),
     )
     # power-weighted light pick CDF (reference core/integrator.h:110)
     pw = np.stack([np.asarray(spec.y(np.asarray(p))) for p in power]).reshape(len(power))
     pw = np.maximum(pw, 1e-9)
     return lights, Distribution1D.make(dev(pw, torch.float32))
+
+
+def _load_light_image(fn: str):
+    """-> (rgb [h, w, 3] float array, mean luminance) or None (with a
+    warning when the file cannot be read)."""
+    if not fn:
+        return None
+    from pbrt_tpu_torch.io.image import read_image
+
+    try:
+        img = read_image(fn)
+    except Exception as e:  # a missing map: warn, light without it
+        warning(f'Unable to read image "{fn}": {e}')
+        return None
+    mean = float(np.mean(0.2126 * img[..., 0] + 0.7152 * img[..., 1] + 0.0722 * img[..., 2]))
+    return img, mean
 
 
 

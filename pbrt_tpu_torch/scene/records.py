@@ -13,7 +13,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from pbrt_tpu_torch.core.transform import Transform
+from pbrt_tpu_torch.core.transform import AnimatedTransform, Transform
 from pbrt_tpu_torch.scene.paramset import ParamSet
 
 
@@ -55,7 +55,7 @@ class ShapeRecord:
     reverse_orientation: bool
     material: Optional[MaterialRecord]
     area_light: Optional[AreaLightRecord] = None
-    animated: object = None  # animated CTM (motion blur; not yet ported)
+    animated: Optional[AnimatedTransform] = None  # TransformedPrimitive analog
     # alpha-texture masking (reference shapes/trianglemesh.cpp:379-437):
     # a texture object (resolved from the graphics state at Shape time)
     # or a constant float; None = fully opaque
@@ -85,7 +85,7 @@ class InstanceRecord:
     name: str
     shapes: List[ShapeRecord]
     i2w: Transform
-    animated: object = None
+    animated: Optional[AnimatedTransform] = None
 
 
 @dataclass

@@ -233,9 +233,11 @@ def test_merge_keys_order_and_roundtrip():
 
 def test_port_builds_with_its_own_builder_source():
     """In a fresh interpreter the port builds a BVH and imports its
-    textures, noise and measured-BRDF modules (and the bridge) without
-    importing jax or pbrt_tpu and without opening or running anything
-    under pbrt_tpu/; its builder source is byte-identical to the
+    textures, noise and measured-BRDF modules (and the bridge), and its
+    lights, samplers (reading its own best-candidate table), cameras,
+    transforms, probes, compiler and render driver, without importing
+    jax or pbrt_tpu and without opening or running anything under
+    pbrt_tpu/; its builder source is byte-identical to the
     reference's."""
     import os
     import subprocess
@@ -260,6 +262,13 @@ tree = bvh.build_bvh(v0, e1, e2, "sah")
 assert tree is not None and len(tree.prim_ids) == 40
 import pbrt_tpu_torch.bridge, pbrt_tpu_torch.materials.measured
 from pbrt_tpu_torch.textures import noise, registry
+from pbrt_tpu_torch.core import probes, sampling, transform
+from pbrt_tpu_torch.samplers import samplers
+from pbrt_tpu_torch.cameras import cameras
+from pbrt_tpu_torch.lights import lighting
+from pbrt_tpu_torch.scene import api, compile, records
+from pbrt_tpu_torch.renderers import driver
+assert samplers._bc_buckets(4)[1].shape[1:] == (4, 2)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pbrt_tpu")]
 assert not bad, bad
 assert not touched, touched

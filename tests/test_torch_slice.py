@@ -146,16 +146,17 @@ def test_bridge_round_trip(compiled):
 NOT_PORTED = {
     "heightfield": 'Shape "heightfield" "integer nu" [2] "integer nv" [2] '
                    '"float Pz" [0 0 0 0]',
-    "goniometric light": 'LightSource "goniometric"',
-    "infinite light": 'LightSource "infinite" "rgb L" [1 1 1]',
-    "projection light": 'LightSource "projection" "rgb I" [1 1 1]',
+    "nurbs": 'Shape "nurbs" "integer nu" [2] "integer nv" [2] "integer uorder" [2] '
+             '"integer vorder" [2] "float uknots" [0 0 1 1] "float vknots" [0 0 1 1] '
+             '"point P" [0 0 0 1 0 0 0 1 0 1 1 0]',
     "loopsubdiv": 'Shape "loopsubdiv" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
-    "moving sphere": 'AttributeBegin\nActiveTransform EndTime\nTranslate 1 0 0\n'
-                     'ActiveTransform All\nShape "sphere"\nAttributeEnd',
 }
 NOT_PORTED_OPTIONS = {
-    "orthographic": 'Camera "orthographic"',
-    "halton": 'Sampler "halton"',
+    "realistic camera": 'Camera "realistic"',
+    "irradiancecache": 'SurfaceIntegrator "irradiancecache"',
+    "dipolesubsurface": 'SurfaceIntegrator "dipolesubsurface"',
+    "grid accelerator": 'Accelerator "grid"',
+    "kdtree accelerator": 'Accelerator "kdtree"',
     "igi": 'SurfaceIntegrator "igi"',
     "metropolis": 'Renderer "metropolis"',
 }
