@@ -26,8 +26,15 @@ bench geometry in textured, bump-mapped mix and uber materials) with
 event spans around K2 and the texture and material evaluation ([14]),
 and a small textured scene (every further material kind, an image map,
 a bump map, an alpha mask) on the card against the CPU, every K1 launch
-bit for bit ([15]); then it prints one JSON line per the contract
-below. Every phase raises on failure; the script then exits
+bit for bit ([15]), the lights, samplers, cameras, motion and
+checkpoint slice ([16]-[20]), and the long tail ([21]-[25]): the bench
+geometry through the realistic lens camera ([21]) and under
+irradiancecache ([22]), the goldens irr and dprt ([23]), the small scene
+under igi, dipolesubsurface, diffuseprt, glossyprt and the
+surfacepoints -> createprobes -> useprobes chain, every K1 launch bit
+for bit ([24]), and autofocus on the card against the CPU ([25]); then
+it prints one JSON line per the contract below. Every phase raises on
+failure; the script then exits
 non-zero and prints no result. It needs no network and no JAX.
 
     python3 chip_smoke.py --profile   # also: bench render under torch.profiler
@@ -58,6 +65,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -73,7 +81,9 @@ GOLDEN_DIR = os.path.join(REPO, "tests", "goldens")
 # the reference-binary goldens the port renders, with the bounds of
 # tests/test_reference_golden.py: (scene, mean-level rtol, mean abs diff / level)
 GOLDENS = (("matte", 0.02, 0.03), ("meshdl", 0.03, 0.08), ("mesh", 0.05, 0.15),
-           ("smoke", 0.05, 0.10), ("vol", 0.05, 0.08), ("disp", 0.08, 0.30))
+           ("smoke", 0.05, 0.10), ("vol", 0.05, 0.08), ("disp", 0.08, 0.30),
+           ("irr", 0.08, 0.20), ("dprt", 0.08, 0.20))
+GOLDENS_MAIN = ("matte", "meshdl", "mesh", "smoke", "vol", "disp")   # [9]; [23] irr and dprt
 BENCHVOL_RES = 1024
 BENCHVOL_CHECK_RES = 16   # benchvol's card-vs-CPU check
 RAINBOWC_BOUNDS = (0.05, 0.15)    # rainbowc's reference-binary bounds (mean ratio, MAD / level)
@@ -90,9 +100,17 @@ MARCH_SIDE, MARCH_STEPS = 128, 64              # [12]'s march leg
 BENCHPHOTON_RES = 256
 BENCHENV_RES = 1024
 ENV_W, ENV_H = 1024, 512   # [16]'s equirectangular map
-SLICE_RES = 32             # [17]-[20]'s card-vs-CPU size
+SLICE_RES = 32             # [17]-[20] and [24]'s card-vs-CPU size
 MOTION_BENCH_RES = 256     # [19b]: the bench geometry moving, t_pass_bvh
 MOTION_CROP = (0.78125, 0.84375, 0.46875, 0.53125)   # [19b]'s 16 x 16 CPU crop (sphere edge)
+LENS = os.path.join(REPO, "tests", "fixtures", "biconvex.dat")   # f ~ 50.85 mm singlet
+LENS_INV_F = 0.5 * (2.0 / 50.0 + 0.5 * 5.0 / (1.5 * 50.0 * -50.0))   # its thick-lens 1/f
+BENCHLENS_RES = 1024
+BENCHLENS_SCALE, BENCHLENS_DIST = 100.0, 525.0   # bench geometry x 100, its sphere 525 away
+BENCHLENS_CROP = (0.25, 0.265625, 0.5, 0.515625)   # [21]'s 16 x 16 CPU crop
+BENCHIRR_RES = 512         # [22], cut from 1024^2: ~17 closest-hit + 17 shadow traversals a tile
+BENCHIRR_CROP = (0.4375, 0.46875, 0.28125, 0.3125)   # [22]'s 16 x 16 CPU crop (on the sphere)
+AF_RES, AF_OBJ = 48, 500.0   # [25]: the textured plane 500 units behind the lens
 
 
 def log(msg):
@@ -441,6 +459,89 @@ def motion_bench_text(res, crop=None):
             'AttributeBegin\nActiveTransform EndTime\nTranslate 0.3 0 0\nActiveTransform All\n'
             'Material "matte" "rgb Kd" [.45 .35 .65]\n' + mesh(P, idx) + 'AttributeEnd\n'
             'Material "matte" "rgb Kd" [.55 .55 .5]\n' + mesh(FLOOR, FLOOR_IDX)
+            + "WorldEnd\n")
+
+
+def benchlens_scene_text(res, crop=None):
+    """The bench geometry scaled by BENCHLENS_SCALE with its sphere
+    BENCHLENS_DIST in front of the biconvex lens (Camera "realistic",
+    film at the thin-lens image distance, no AF zones) under a distant
+    light; path maxdepth 5, 1 spp."""
+    P, idx = uv_sphere(260, 260, 1.0, (0.0, 0.4, 0.0))
+    k = BENCHLENS_SCALE
+    eye_y = 0.4 * k + 0.3 * BENCHLENS_DIST
+    eye_z = -np.sqrt(BENCHLENS_DIST ** 2 - (eye_y - 0.4 * k) ** 2)
+    film_dist = 1.0 / (LENS_INV_F - 1.0 / BENCHLENS_DIST)
+    cw = '' if crop is None else ' "float cropwindow" [' + " ".join(map(str, crop)) + ']'
+    return (f'Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]{cw}\n'
+            'Sampler "lowdiscrepancy" "integer pixelsamples" [1]\n'
+            f'LookAt 0 {eye_y:.4f} {eye_z:.4f}  0 {0.4 * k:.4f} 0  0 1 0\n'
+            f'Camera "realistic" "string specfile" "{LENS}" "float filmdistance" '
+            f'[{film_dist:.4f}] "float aperture_diameter" [8] "float filmdiag" [40]\n'
+            'SurfaceIntegrator "path" "integer maxdepth" [5]\nWorldBegin\n'
+            'LightSource "distant" "point from" [2 4 -3] "point to" [0 0 0] "rgb L" [60 60 60]\n'
+            f'AttributeBegin\nScale {k} {k} {k}\n'
+            'Material "matte" "rgb Kd" [.45 .35 .65]\n' + mesh(P, idx)
+            + 'Material "matte" "rgb Kd" [.55 .55 .5]\n' + mesh(FLOOR, FLOOR_IDX)
+            + "AttributeEnd\nWorldEnd\n")
+
+
+def benchirr_scene_text(res, crop=None):
+    """The bench scene under irradiancecache, nsamples 4096 (16 gather
+    rays a hit), 1 spp."""
+    s = bench_scene_text(res).replace('SurfaceIntegrator "path" "integer maxdepth" [5]',
+                                      'SurfaceIntegrator "irradiancecache" '
+                                      '"integer nsamples" [4096]')
+    if crop is not None:
+        s = s.replace(f'"integer yresolution" [{res}]', f'"integer yresolution" [{res}] '
+                      '"float cropwindow" [' + " ".join(map(str, crop)) + ']', 1)
+    return s
+
+
+LONGTAIL_DISTANT = ('LightSource "distant" "point from" [2 4 -3] "point to" [0 0 0] '
+                    '"rgb L" [3 3 3]\n')
+# [24]'s cases: (surface integrator line, replacement of the point light, of the matte sphere)
+LONGTAIL_CASES = {
+    "igi": ('SurfaceIntegrator "igi" "integer nlights" [16] "integer nsets" [2] '
+            '"integer maxdepth" [3]', None, None),
+    "dipolesubsurface": ('SurfaceIntegrator "dipolesubsurface" "float minsampledistance" [0.5]',
+                         None, 'Material "subsurface" "string name" ["Marble"]'),
+    "diffuseprt": ('SurfaceIntegrator "diffuseprt" "integer lmax" [4] "integer nsamples" [1024]',
+                   LONGTAIL_DISTANT, None),
+    "glossyprt": ('SurfaceIntegrator "glossyprt" "integer lmax" [4]', LONGTAIL_DISTANT, None),
+}
+
+
+def longtail_text(integrator, lights=None, material=None, renderer=None):
+    """The small scene (SLICE_RES^2, 4 spp) under another surface
+    integrator (or renderer), light or matte-sphere material."""
+    s = small_variant_text(SLICE_RES, 4, lights=lights).replace(
+        'SurfaceIntegrator "path" "integer maxdepth" [5]', integrator)
+    if material:
+        s = s.replace('Material "matte" "rgb Kd" [.6 .3 .2]', material)
+    if renderer:
+        s = s.replace("WorldBegin\n", renderer + "\nWorldBegin\n", 1)
+    return s
+
+
+def af_plane_text(res, film_dist, zones_path):
+    """tests/test_realistic_camera.py's plane: a checkerboard quad at
+    z = AF_OBJ under a head-on distant light, seen through the biconvex
+    lens with one AF zone; path maxdepth 5, 1 spp."""
+    ext = AF_OBJ * 0.8
+    P = np.array([[-ext, -ext, AF_OBJ], [ext, -ext, AF_OBJ], [ext, ext, AF_OBJ],
+                  [-ext, ext, AF_OBJ]], np.float32)
+    return (f'Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]\n'
+            'Sampler "lowdiscrepancy" "integer pixelsamples" [1]\n'
+            f'Camera "realistic" "string specfile" "{LENS}" "float filmdistance" '
+            f'[{film_dist:.5f}] "float aperture_diameter" [6] "float filmdiag" [40] '
+            f'"string af_zones" "{zones_path}"\n'
+            'SurfaceIntegrator "path" "integer maxdepth" [5]\nWorldBegin\n'
+            'LightSource "distant" "point from" [0 0 -10] "point to" [0 0 0] "rgb L" [6 6 6]\n'
+            'Texture "checks" "color" "checkerboard" "float uscale" [24] "float vscale" [24] '
+            '"rgb tex1" [.9 .9 .9] "rgb tex2" [.05 .05 .05]\n'
+            'Material "matte" "texture Kd" "checks"\n'
+            + mesh(P, np.array([0, 1, 2, 2, 3, 0]))[:-1] + ' "float uv" [0 0 1 0 1 1 0 1]\n'
             + "WorldEnd\n")
 
 
@@ -962,6 +1063,25 @@ def agree(gpu, cpu, what):
     return mean_rel, within
 
 
+def k2_spans(k2):
+    """Event spans, launches, pairs and bound of a LaunchTimer(K2, k2_work)."""
+    work = k2.work_rows()
+    return {"k2_ms": k2.total_ms(), "k2_launches": len(k2.events),
+            "k2_pairs": sum(w[0] for w in work),
+            "k2_bound_ms": sum(max(f, b) for f, b in (k2_launch_bound(*w) for w in work))}
+
+
+def crop_check(text_fn, res, crop, img, name, tmp):
+    """The crop of a card render against the same crop rendered on the
+    CPU in one tile of exactly its samples -> (CPU s, mean rel, within)."""
+    x0, x1, y0, y1 = (int(np.ceil(res * c)) for c in crop)
+    cpu, cpu_sec = render(text_fn(res, crop), name + "_crop_cpu", tmp,
+                          extra=("--device", "cpu", "--tile-samples", str((x1 - x0) * (y1 - y0))))
+    mean_rel, within = agree(img[y0:y1, x0:x1], cpu,
+                             f"crop {x1 - x0}x{y1 - y0} ({cpu_sec:.2f} s on the CPU)")
+    return cpu_sec, mean_rel, within
+
+
 class NoPlain:
     """While active, the plain twins of K1 and K2 and the triangle brute
     force raise: a render on the card must not reach them."""
@@ -1019,16 +1139,17 @@ class AnyHitCounter:
         return out
 
 
-def phase_goldens(tmp):
-    """[9]: the reference-binary goldens through the CLI on the card at
-    their authored size and spp, against the reference images and the
-    CPU render; every K1 launch of the scenes with triangles held bit for
-    bit against the plain twin in a second render. -> per scene dict."""
+def phase_goldens(tmp, names=GOLDENS_MAIN):
+    """[9] and [23]: the reference-binary goldens `names` through the CLI
+    on the card at their authored size and spp, against the reference
+    images and the CPU render; every K1 launch of the scenes with
+    triangles held bit for bit against the plain twin in a second render.
+    -> per scene dict."""
     from pbrt_tpu_torch.io.image import read_image
     from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
 
     out = {}
-    for name, mean_rtol, pix_bound in GOLDENS:
+    for name, mean_rtol, pix_bound in (g for g in GOLDENS if g[0] in names):
         with open(os.path.join(GOLDEN_DIR, f"{name}.pbrt")) as f:
             text = f.read()
         ref = np.asarray(read_image(os.path.join(GOLDEN_DIR, f"ref_{name}.pfm")))
@@ -1053,17 +1174,9 @@ def phase_goldens(tmp):
                "mean_ratio": mean_ratio, "mad_ratio": mad_ratio, "bounds": [mean_rtol, pix_bound],
                "pass": ok, "cpu_mean_rel": mean_rel, "cpu_within_1e-3": within}
         if k1_launches:
-            rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
-            with Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
-                render(text, f"golden_{name}_checked", tmp)
-            r = rec.summary()
-            if r["launches"] != k1_launches:
-                raise RuntimeError(f"{name}: K1 launches differ between renders: "
-                                   f"{r['launches']} vs {k1_launches}")
-            log(f"  {name}: every one of {r['launches']} K1 launches bit-equal to the plain "
-                f"twin; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, live share "
-                f"{r['live_share']:.4f}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-            row["k1"] = r
+            log(f"  {name}:")
+            row["k1"] = checked_card_render(text, f"golden_{name}_checked", tmp,
+                                            expect=k1_launches)[1]
         out[name] = row
     return out
 
@@ -1162,18 +1275,9 @@ def phase_rainbowc(tmp):
         raise RuntimeError("rainbowc outside the reference-binary bounds")
     if k1_launches <= 0:
         raise RuntimeError("rainbowc did not launch K1")
-    rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
-    with Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
-        render(text, "rainbowc_checked", tmp)
-    r = rec.summary()
+    r = checked_card_render(text, "rainbowc_checked", tmp, expect=k1_launches)[1]
     r.pop("live_share_per_launch")
     r.pop("rays_per_launch")
-    if r["launches"] != k1_launches:
-        raise RuntimeError(f"rainbowc: K1 launches differ between renders: "
-                           f"{r['launches']} vs {k1_launches}")
-    log(f"  every one of {r['launches']} K1 launches bit-equal to the plain twin; kernel "
-        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, live share {r['live_share']:.4f}, "
-        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     crop = rainbowc_text(crop=RAINBOWC_CROP)
     tile = ("--tile-samples", str(24 * 24 * 2))   # one tile of exactly the crop's samples
     gpu, _ = render(crop, "rainbowc_crop_gpu", tmp, extra=tile)
@@ -1220,12 +1324,8 @@ def phase_benchtex(tmp):
     if bvh_cuda.launches != k2_launches:
         raise RuntimeError(f"benchtex: K2 launches differ between renders: "
                            f"{bvh_cuda.launches} vs {k2_launches}")
-    work = k2.work_rows()
     spans = {"eval_bsdf_params_ms": params.total_ms(), "eval_bsdf_params_calls": len(params.events),
-             "eval_bump_ms": bump.total_ms(), "eval_bump_calls": len(bump.events),
-             "k2_ms": k2.total_ms(), "k2_launches": len(k2.events),
-             "k2_pairs": sum(w[0] for w in work),
-             "k2_bound_ms": sum(max(f, b) for f, b in (k2_launch_bound(*w) for w in work))}
+             "eval_bump_ms": bump.total_ms(), "eval_bump_calls": len(bump.events), **k2_spans(k2)}
     tex_ms = spans["eval_bsdf_params_ms"] + spans["eval_bump_ms"]
     log(f"  again with events: {sec_ev:.2f} s end to end; event spans: eval_bsdf_params "
         f"{spans['eval_bsdf_params_ms']:.1f} ms over {spans['eval_bsdf_params_calls']} calls, "
@@ -1262,18 +1362,9 @@ def phase_smalltex(tmp):
     cpu, cpu_sec = render(text, "smalltex_cpu", tmp, extra=(*tile, "--device", "cpu"))
     mean_rel, within = agree(gpu, cpu, f"smalltex {SMALLTEX_RES}x{SMALLTEX_RES} "
                              f"({sec:.2f} s on the card, {cpu_sec:.2f} s on the CPU)")
-    rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
-    with Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
-        render(text, "smalltex_checked", tmp, extra=tile)
-    r = rec.summary()
+    r = checked_card_render(text, "smalltex_checked", tmp, extra=tile, expect=k1_launches)[1]
     r.pop("live_share_per_launch")
     r.pop("rays_per_launch")
-    if r["launches"] != k1_launches:
-        raise RuntimeError(f"smalltex: K1 launches differ between renders: "
-                           f"{r['launches']} vs {k1_launches}")
-    log(f"  every one of {r['launches']} K1 launches bit-equal to the plain twin; kernel "
-        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, live share {r['live_share']:.4f}, "
-        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return {"seconds": sec, "k1_launches": k1_launches, "k2_launches": bvh_cuda.launches,
             "k1": r, "cpu_seconds": cpu_sec, "cpu_mean_rel": mean_rel,
             "cpu_within_1e-3": within}
@@ -1357,12 +1448,8 @@ def phase_benchenv(tmp):
     if bvh_cuda.launches != k2_launches:
         raise RuntimeError(f"benchenv: K2 launches differ between renders: "
                            f"{bvh_cuda.launches} vs {k2_launches}")
-    work = k2.work_rows()
     spans = {"env_sample_ms": env_sample.total_ms(), "env_sample_calls": len(env_sample.events),
-             "escape_ms": escape.total_ms(), "escape_calls": len(escape.events),
-             "k2_ms": k2.total_ms(), "k2_launches": len(k2.events),
-             "k2_pairs": sum(w[0] for w in work),
-             "k2_bound_ms": sum(max(f, b) for f, b in (k2_launch_bound(*w) for w in work))}
+             "escape_ms": escape.total_ms(), "escape_calls": len(escape.events), **k2_spans(k2)}
     log(f"  again with events: {sec_ev:.2f} s end to end; event spans: env-map sampling "
         f"{spans['env_sample_ms']:.1f} ms over {spans['env_sample_calls']} calls, escape "
         f"emission {spans['escape_ms']:.1f} ms over {spans['escape_calls']} calls, K2 "
@@ -1374,16 +1461,40 @@ def phase_benchenv(tmp):
             "escaped_checked": n_esc, "escaped_worst_rel": worst, "spans": spans}
 
 
-def card_and_cpu(text, name, tmp, spp, k1_check=False):
-    """Render a SLICE_RES^2 scene of `spp` samples a pixel (one tile of
-    exactly its samples: no padding pixels) on the card (K1 launches
-    counted) and on the CPU, within agree()'s limits; with k1_check, a
-    third render on the card holds every K1 launch bit for bit against
-    the plain twin. -> dict."""
+def checked_card_render(text, name, tmp, extra=(), image=True, expect=None):
+    """A run on the card with the plain twins refused (NoPlain) and every
+    K1 launch held bit for bit against the plain twin (K1Recorder); it
+    must launch K1, `expect` times where given (an earlier render's
+    count) -> ((image, seconds) or seconds, K1 summary)."""
+    from pbrt_tpu_torch.ops import intersect_cuda
+
+    rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
+    intersect_cuda.launches = 0
+    with NoPlain(), Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
+        out = (render if image else run_cli)(text, name, tmp, extra)
+    r = rec.summary()
+    if r["launches"] != intersect_cuda.launches or r["launches"] <= 0:
+        raise RuntimeError(f"{name}: {r['launches']} K1 launches checked of "
+                           f"{intersect_cuda.launches}")
+    if expect is not None and r["launches"] != expect:
+        raise RuntimeError(f"{name}: K1 launches differ between renders: "
+                           f"{r['launches']} vs {expect}")
+    log(f"  every one of {r['launches']} K1 launches bit-equal to the plain twin; kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, live share {r['live_share']:.4f}, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return out, r
+
+
+def card_and_cpu(text, name, tmp, spp, k1_check=False, res=SLICE_RES):
+    """Render a res^2 scene of `spp` samples a pixel (one tile of exactly
+    its samples: no padding pixels) on the card (K1 launches counted)
+    and on the CPU, within agree()'s limits; with k1_check, a third
+    render on the card (checked_card_render) holds every K1 launch bit
+    for bit against the plain twin. -> dict."""
     from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
     from pbrt_tpu_torch.renderers import driver
 
-    tile = ("--tile-samples", str(SLICE_RES * SLICE_RES * spp))
+    tile = ("--tile-samples", str(res * res * spp))
     intersect_cuda.launches = 0
     bvh_cuda.launches = 0
     gpu, sec = render(text, name + "_gpu", tmp, extra=tile)
@@ -1396,16 +1507,8 @@ def card_and_cpu(text, name, tmp, spp, k1_check=False):
     out["cpu_mean_rel"], out["cpu_within_1e-3"] = agree(
         gpu, cpu, f"{name} ({sec:.2f} s on the card, {cpu_sec:.2f} s on the CPU)")
     if k1_check:
-        rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
-        with Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
-            render(text, name + "_checked", tmp, extra=tile)
-        r = rec.summary()
-        if r["launches"] != out["k1_launches"] or r["launches"] <= 0:
-            raise RuntimeError(f"{name}: K1 launches {r['launches']} vs {out['k1_launches']}")
-        log(f"  every one of {r['launches']} K1 launches bit-equal to the plain twin; kernel "
-            f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, live share {r['live_share']:.4f}, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        out["k1"] = r
+        out["k1"] = checked_card_render(text, name + "_checked", tmp, extra=tile,
+                                        expect=out["k1_launches"])[1]
     return out
 
 
@@ -1486,12 +1589,8 @@ def phase_motion(tmp):
         f"render)")
     if st["traversals"] <= 0:
         raise RuntimeError("motion bench render did not walk the binary BVH")
-    x0, x1, y0, y1 = (int(np.ceil(res * c)) for c in MOTION_CROP)
-    crop = motion_bench_text(res, MOTION_CROP)
-    cpu, cpu_sec = render(crop, "motion_bench_crop_cpu", tmp,
-                          extra=("--device", "cpu", "--tile-samples", str((x1 - x0) * (y1 - y0))))
-    mean_rel, within = agree(img[y0:y1, x0:x1], cpu,
-                             f"(b) crop {x1 - x0}x{y1 - y0} ({cpu_sec:.2f} s on the CPU)")
+    cpu_sec, mean_rel, within = crop_check(motion_bench_text, res, MOTION_CROP, img,
+                                           "motion_bench", tmp)
     return {"small": a, "bench": {"res": res, "seconds": sec, "camera_rays_per_s": res * res / sec,
                                   "traversals": st["traversals"],
                                   "iterations_per_traversal": st["iterations"] / n,
@@ -1556,6 +1655,247 @@ def run_slice_phases(tmp):
                        "binary-BVH walk (bench geometry)", phase_motion),
             ("checkpoint", "[20] checkpoint / resume and the statistics counters",
              phase_checkpoint)):
+        log(title)
+        t0 = time.perf_counter()
+        out[key] = fn(tmp)
+        log(f"  {title.split()[0]} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+class WeightCounter:
+    """Stands in for realistic.realistic_generate_rays: counts the camera
+    samples and those of weight 0 (rays that miss an aperture), on the
+    device, read after the render."""
+
+    def __init__(self, fn):
+        self.fn, self.zero, self.total = fn, [], 0
+
+    def __call__(self, *args, **kw):
+        ray, w = self.fn(*args, **kw)
+        self.zero.append((w == 0).sum())
+        self.total += w.numel()
+        return ray, w
+
+    def share(self):
+        return sum(int(z) for z in self.zero) / max(self.total, 1)
+
+
+def phase_benchlens(tmp):
+    """[21]: benchlens through the CLI on the card, with CUDA events
+    around every K2 launch: the bench geometry (K2) through Camera
+    "realistic" (the biconvex lens); the share of camera samples of
+    weight 0; card vs CPU on a 16 x 16 crop -> dict."""
+    from pbrt_tpu_torch.cameras import realistic
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+
+    res = BENCHLENS_RES
+    text = benchlens_scene_text(res)
+    weights = WeightCounter(realistic.realistic_generate_rays)
+    k2 = LaunchTimer(bvh_cuda.wide_sweep_cuda, work=k2_work)
+    intersect_cuda.launches = 0
+    bvh_cuda.launches = 0
+    with NoPlain(), Patched((realistic, "realistic_generate_rays", weights),
+                            (bvh_cuda, "wide_sweep", k2)):
+        img, sec = render(text, "benchlens", tmp)
+    k2_launches, k1_launches = bvh_cuda.launches, intersect_cuda.launches
+    zero_share = weights.share()
+    spans = k2_spans(k2)
+    log(f"  {res}x{res}, 1 spp, with events: {sec:.2f} s end to end (parse + compile + BVH "
+        f"build + render), {res * res / sec:.0f} camera rays/s, image mean {img.mean():.5f}; "
+        f"camera samples of weight 0 (an aperture missed): {zero_share:.4f} of "
+        f"{weights.total}; K2 launches {k2_launches}, K1 launches {k1_launches}; K2 event "
+        f"spans {spans['k2_ms']:.1f} ms ({spans['k2_ms'] / 1e3 / sec:.3f} of the render), "
+        f"{spans['k2_pairs']} (tile, block) pairs, bound {spans['k2_bound_ms']:.3f} ms")
+    if k2_launches <= 0:
+        raise RuntimeError("benchlens render did not launch K2")
+    if not 0.0 < zero_share < 0.5:
+        raise RuntimeError(f"benchlens: {zero_share:.3f} of the camera samples have weight 0")
+    cpu_sec, mean_rel, within = crop_check(benchlens_scene_text, res, BENCHLENS_CROP, img,
+                                           "benchlens", tmp)
+    return {"res": res, "seconds": sec, "camera_rays_per_s": res * res / sec,
+            "weight0_share": zero_share, "k2_launches": k2_launches,
+            "k1_launches": k1_launches, "spans": spans,
+            "cpu_crop_seconds": cpu_sec, "cpu_mean_rel": mean_rel, "cpu_within_1e-3": within}
+
+
+def phase_benchirr(tmp):
+    """[22]: benchirr through the CLI on the card: the bench scene (K2)
+    under irradiancecache (16 gather rays a hit), 512^2, with CUDA events
+    around every K2 launch and every gather (extra.irradiance_gather: its
+    traversal and the direct light at its hit); card vs CPU on a 16 x 16
+    crop -> dict."""
+    from pbrt_tpu_torch.integrators import extra
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+
+    res = BENCHIRR_RES
+    text = benchirr_scene_text(res)
+    k2 = LaunchTimer(bvh_cuda.wide_sweep_cuda, work=k2_work)
+    gathers = LaunchTimer(extra.irradiance_gather)
+    kinds = AnyHitCounter(bvh_cuda)
+    intersect_cuda.launches = 0
+    bvh_cuda.launches = 0
+    with NoPlain(), Patched((bvh_cuda, "wide_sweep", k2), (extra, "irradiance_gather", gathers),
+                            (bvh_cuda, "wide_t_pass", kinds)):
+        img, sec = render(text, "benchirr", tmp)
+    k2_launches, k1_launches = bvh_cuda.launches, intersect_cuda.launches
+    if k2_launches <= 0:
+        raise RuntimeError("benchirr render did not launch K2")
+    spans = k2_spans(k2)
+    spans.update(gather_ms=gathers.total_ms(), gather_calls=len(gathers.events))
+    log(f"  {res}x{res}, 1 spp, with events: {sec:.2f} s end to end, {res * res / sec:.0f} "
+        f"camera rays/s, image mean {img.mean():.5f}; K2 launches {k2_launches} "
+        f"({kinds.any_hit} any-hit, {kinds.closest} closest-hit), K1 launches {k1_launches}; "
+        f"event spans: gathers {spans['gather_ms']:.1f} ms over {spans['gather_calls']} calls "
+        f"({spans['gather_ms'] / 1e3 / sec:.3f} of the render), K2 {spans['k2_ms']:.1f} ms "
+        f"({spans['k2_ms'] / 1e3 / sec:.3f}; {spans['k2_pairs']} (tile, block) pairs, bound "
+        f"{spans['k2_bound_ms']:.3f} ms)")
+    cpu_sec, mean_rel, within = crop_check(benchirr_scene_text, res, BENCHIRR_CROP, img,
+                                           "benchirr", tmp)
+    return {"res": res, "seconds": sec, "camera_rays_per_s": res * res / sec,
+            "k2_launches": k2_launches, "k2_any_hit_launches": kinds.any_hit,
+            "k2_closest_launches": kinds.closest, "k1_launches": k1_launches, "spans": spans,
+            "gather_share": spans["gather_ms"] / 1e3 / sec, "cpu_crop_seconds": cpu_sec,
+            "cpu_mean_rel": mean_rel, "cpu_within_1e-3": within}
+
+
+def phase_longtail(tmp):
+    """[24]: the small scene (K1) under igi, dipolesubsurface (a Marble
+    sphere), diffuseprt and glossyprt (a distant light), and the chain
+    surfacepoints -> createprobes -> useprobes: the point and probe files
+    of both devices compared (createprobes' K1 launches on the card held
+    bit for bit), then each render through card_and_cpu (every K1 launch
+    bit-equal to the plain twin) -> dict."""
+    out = {}
+    files = {}
+    for dev in ("gpu", "cpu"):
+        sp, probes = (os.path.join(tmp, f"longtail_{k}_{dev}.npz") for k in ("sp", "probes"))
+        files[dev] = sp, probes
+        dev_args = () if dev == "gpu" else ("--device", "cpu")
+        text = longtail_text('SurfaceIntegrator "path" "integer maxdepth" [5]', renderer=(
+            f'Renderer "surfacepoints" "float minsampledistance" [0.25] "string filename" "{sp}"'))
+        sp_sec = run_cli(text, f"longtail_sp_{dev}", tmp, dev_args)
+        text = longtail_text('SurfaceIntegrator "path" "integer maxdepth" [5]', renderer=(
+            f'Renderer "createprobes" "integer lmax" [2] "integer indirectsamples" [128] '
+            f'"string filename" "{probes}"'))
+        if dev == "gpu":
+            pr_sec, r = checked_card_render(text, "longtail_probes_gpu", tmp, image=False)
+            for k in ("live_share_per_launch", "rays_per_launch"):
+                r.pop(k)
+        else:
+            pr_sec = run_cli(text, "longtail_probes_cpu", tmp, dev_args)
+        out[f"files_{dev}"] = {"surfacepoints_seconds": sp_sec, "createprobes_seconds": pr_sec}
+    sp_g, sp_c = (dict(np.load(files[d][0])) for d in ("gpu", "cpu"))
+    if set(sp_g) != {"p", "n", "area"} or not all(np.array_equal(sp_g[k], sp_c[k]) for k in sp_g):
+        raise RuntimeError("surfacepoints: the card's and the CPU's point files differ")
+    pg, pc = (dict(np.load(files[d][1])) for d in ("gpu", "cpu"))
+    c_rel = float(np.abs(pg["coeffs"] - pc["coeffs"]).max() / np.abs(pc["coeffs"]).max())
+    log(f"  surfacepoints: {len(sp_g['p'])} points, card file == CPU file; createprobes: "
+        f"{pg['coeffs'].shape} coefficients, card vs CPU max difference {c_rel:.3g} of the "
+        f"largest (limit 1e-4); its {r['launches']} K1 launches on the card bit-equal")
+    if c_rel > 1e-4 or not all(np.array_equal(pg[k], pc[k]) for k in ("lo", "hi", "dims", "lmax")):
+        raise RuntimeError("createprobes: the card's and the CPU's probe files differ")
+    out["createprobes"] = {"points": len(sp_g["p"]), "coeffs_max_rel_diff": c_rel,
+                           "k1_launches": r["launches"], "k1": r}
+    cases = {name: longtail_text(*case) for name, case in LONGTAIL_CASES.items()}
+    cases["useprobes"] = longtail_text(f'SurfaceIntegrator "useprobes" "string filename" '
+                                       f'"{files["gpu"][1]}"')
+    for name, text in cases.items():
+        log(f"  {name}:")
+        out[name] = card_and_cpu(text, f"longtail_{name}", tmp, 4, k1_check=True)
+        for k in ("live_share_per_launch", "rays_per_launch"):
+            out[name]["k1"].pop(k)
+    return out
+
+
+def phase_autofocus(tmp):
+    """[25]: the textured plane at AF_OBJ behind the biconvex lens, one
+    AF zone, AF_RES^2, through card_and_cpu (AF at 16 spp from 2% long
+    of the thin-lens image distance, then the render; every K1 launch of
+    the checked card run bit-equal to the plain twin, the images within
+    agree()'s limits); the card's and the CPU's picks must agree within
+    1e-4 relative, and the card's pick must lie within 3% of the peak of
+    an SML scan over 41 film distances on the card -> dict."""
+    from pbrt_tpu_torch.cameras import realistic
+    from pbrt_tpu_torch.renderers.driver import build_li_fn
+
+    zones = os.path.join(tmp, "af_zones.txt")
+    with open(zones, "w") as f:
+        f.write("0.3 0.7 0.3 0.7\n")
+    fd_img = 1.0 / (LENS_INV_F - 1.0 / AF_OBJ)
+    start = 1.02 * fd_img
+    text = af_plane_text(AF_RES, start, zones)
+    picks = []     # card, CPU, checked card run
+    real_af = realistic.autofocus
+
+    def recording_af(scene, camera, film, li_fn, seed=0, spp=16):
+        real_af(scene, camera, film, li_fn, seed=seed, spp=spp)
+        picks.append(float(camera.lens.film_dist))
+
+    with Patched((realistic, "autofocus", recording_af)):
+        r = card_and_cpu(text, "af", tmp, 1, k1_check=True, res=AF_RES)
+    r["k1"].pop("live_share_per_launch")
+    r["k1"].pop("rays_per_launch")
+    pick_gpu, pick_cpu, pick_checked = picks
+    # the SML curve on the card: the zone crop at 41 film distances
+    scene, ro = compile_text(text, "af_scan", tmp, "cuda")
+    from pbrt_tpu_torch.cameras.cameras import make_camera
+    from pbrt_tpu_torch.core.transform import Transform
+
+    cam = make_camera(ro.camera_name, ro.camera_params, ro.camera_to_world or Transform(),
+                      AF_RES, AF_RES)
+    film = types.SimpleNamespace(xres=AF_RES, yres=AF_RES)
+    li = build_li_fn(scene, ro, {})
+    t0 = time.perf_counter()
+    cands = np.linspace(0.8 * fd_img, 1.2 * fd_img, 41)
+    curve = realistic.zone_sharpness(cam, film, li, cam.lens.af_zones[0], cands, 0, 16,
+                                     scene.geom.tri_v0.device)
+    scan_sec = time.perf_counter() - t0
+    peak = float(cands[int(np.argmax(curve))])
+    pick_rel = abs(pick_gpu - pick_cpu) / pick_cpu
+    log(f"  film distance: start {start:.3f}, card pick {pick_gpu!r} ({r['seconds']:.2f} s with "
+        f"the render, K1 launches {r['k1_launches']}; the checked run's {pick_checked!r}), CPU "
+        f"pick {pick_cpu!r} ({r['cpu_seconds']:.2f} s): relative difference {pick_rel:.3g} "
+        f"(limit 1e-4); SML scan peak {peak:.3f} (41 distances, {scan_sec:.2f} s; max/min "
+        f"{max(curve) / min(curve):.2f}); card pick off the peak by "
+        f"{abs(pick_gpu - peak) / peak:.4f} (limit 0.03)")
+    if pick_rel > 1e-4 or pick_checked != pick_gpu:
+        raise RuntimeError("autofocus: the card's and the CPU's picks differ")
+    if abs(pick_gpu - peak) > 0.03 * peak or max(curve) < 1.5 * min(curve):
+        raise RuntimeError("autofocus: the pick is not at the SML peak")
+    return {"start": start, "pick_gpu": pick_gpu, "pick_cpu": pick_cpu, "pick_rel_diff": pick_rel,
+            "sml_peak": peak, "scan_seconds": scan_sec, **r}
+
+
+def phase_goldens_longtail(tmp):
+    """[23]: the goldens irr (irradiancecache) and dprt (diffuseprt) as
+    in [9]; both scenes are quadrics only, so neither kernel may launch."""
+    out = phase_goldens(tmp, names=("irr", "dprt"))
+    launched = {n: (g["k1_launches"], g["k2_launches"]) for n, g in out.items()
+                if g["k1_launches"] or g["k2_launches"]}
+    if launched:
+        raise RuntimeError(f"goldens irr / dprt launched a kernel: {launched}")
+    log("  irr and dprt reached no kernel (K1 and K2 launches 0): they check the "
+        "integrators, not the kernels")
+    return out
+
+
+def run_longtail_phases(tmp):
+    """[21]-[25], the realistic camera, the long-tail integrators and
+    renderers -> dict."""
+    out = {}
+    for key, title, fn in (
+            ("benchlens", f"[21] benchlens (bench geometry x {BENCHLENS_SCALE:g} through the "
+                          f"biconvex lens, distant light; path maxdepth 5) {BENCHLENS_RES}x"
+                          f"{BENCHLENS_RES}, 1 spp", phase_benchlens),
+            ("benchirr", f"[22] benchirr (bench scene under irradiancecache, nsamples 4096: 16 "
+                         f"gathers a hit) {BENCHIRR_RES}x{BENCHIRR_RES}, 1 spp", phase_benchirr),
+            ("goldens", "[23] the goldens irr and dprt (quadrics only: they reach no kernel)",
+             phase_goldens_longtail),
+            ("longtail", "[24] small scene under igi, dipolesubsurface, diffuseprt, glossyprt; "
+                         "surfacepoints -> createprobes -> useprobes; card vs CPU",
+             phase_longtail),
+            ("autofocus", f"[25] autofocus on the textured plane at {AF_OBJ:g} (one zone, "
+                          f"{AF_RES}x{AF_RES})", phase_autofocus)):
         log(title)
         t0 = time.perf_counter()
         out[key] = fn(tmp)
@@ -1868,20 +2208,27 @@ def phase_benchphoton(tmp, device):
             "k1_launches": k1_launches, "first_batch_k2": m, "stats": st, "spans": out}
 
 
-def render(scene_text, out_name, tmp, extra=()):
-    """Write the scene and render it through the CLI entry point."""
+def run_cli(scene_text, out_name, tmp, extra=()):
+    """Write the scene and run it through the CLI entry point -> seconds."""
     from pbrt_tpu_torch import main as cli
-    from pbrt_tpu_torch.io.image import read_image
 
     path = os.path.join(tmp, out_name + ".pbrt")
     with open(path, "w") as f:
         f.write(scene_text)
-    out = os.path.join(tmp, out_name + ".pfm")
     t0 = time.perf_counter()
-    rc = cli.main(["--quiet", "--outfile", out, *extra, path])
+    rc = cli.main(["--quiet", *extra, path])
     seconds = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"render of {out_name} failed (rc {rc})")
+    return seconds
+
+
+def render(scene_text, out_name, tmp, extra=()):
+    """Write the scene and render it through the CLI entry point."""
+    from pbrt_tpu_torch.io.image import read_image
+
+    out = os.path.join(tmp, out_name + ".pfm")
+    seconds = run_cli(scene_text, out_name, tmp, ("--outfile", out, *extra))
     img = read_image(out)
     if not np.all(np.isfinite(img)) or not img.mean() > 0:
         raise RuntimeError(f"{out_name}: image not finite or black (mean {img.mean()})")
@@ -2077,31 +2424,42 @@ def main():
         photon = run_photon_phases(tmp, device)
         textured = run_texture_phases(tmp)
         sliced = run_slice_phases(tmp)
+        longtail = run_longtail_phases(tmp)
 
-    # K1: every launch of the small render, the goldens, rainbowc and the
-    # small textured scene (set3: 65,536 rays x 4,096 triangles); K2: the
-    # three 1024^2 ray sets in the render's 65,536-ray traversals (sums
-    # over every wave; by_set has each set at both shapes), launches of
-    # the bench, benchvol, benchphoton and benchtex renders. No single
+    # K1: every launch of the small render, the goldens, rainbowc, the
+    # small textured scene, [17], [18], [24] and [25] (set3: 65,536 rays x
+    # 4,096 triangles); K2: the three 1024^2 ray sets in the render's
+    # 65,536-ray traversals (sums over every wave; by_set has each set at
+    # both shapes), launches of the bench, benchvol, benchphoton,
+    # benchtex, benchenv, benchlens and benchirr renders. No single
     # PyTorch call computes either.
     k1["goldens"] = goldens
     k1["rainbowc"] = photon["rainbowc"]
     k1["smalltex"] = textured["smalltex"]
     k1["smalllights"] = sliced["smalllights"]
     k1["samplers"] = sliced["samplers"]
+    k1["longtail"] = longtail["longtail"]
+    k1["autofocus"] = longtail["autofocus"]
+    lt_k1 = (sum(r["k1_launches"] for k, r in longtail["longtail"].items()
+                 if not k.startswith("files_")) + longtail["autofocus"]["k1_launches"])
     k1["launches"] += (sum(g["k1_launches"] for g in goldens.values())
                        + photon["rainbowc"]["k1_launches"] + textured["smalltex"]["k1_launches"]
                        + sliced["smalllights"]["k1_launches"]
-                       + sum(r["k1_launches"] for r in sliced["samplers"].values()))
+                       + sum(r["k1_launches"] for r in sliced["samplers"].values()) + lt_k1)
     k2["benchvol"] = benchvol
     k2["benchphoton"] = photon["benchphoton"]
     k2["benchtex"] = textured["benchtex"]
     k2["benchenv"] = sliced["benchenv"]
+    k2["benchlens"] = longtail["benchlens"]
+    k2["benchirr"] = longtail["benchirr"]
     k2["launches"] += (benchvol["k2_launches"] + photon["benchphoton"]["k2_launches"]
-                       + textured["benchtex"]["k2_launches"] + sliced["benchenv"]["k2_launches"])
+                       + textured["benchtex"]["k2_launches"] + sliced["benchenv"]["k2_launches"]
+                       + longtail["benchlens"]["k2_launches"]
+                       + longtail["benchirr"]["k2_launches"])
     log(f"  photon legs: {json.dumps(photon['photon_legs'])}")
     log(f"  motion: {json.dumps(sliced['motion'], default=float)}; checkpoint: "
         f"{json.dumps(sliced['checkpoint'])}")
+    log(f"  goldens irr / dprt: {json.dumps(longtail['goldens'], default=float)}")
     log(f"  all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": "k1_sweep_kernel", "route": "cuda",

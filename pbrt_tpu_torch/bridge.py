@@ -22,6 +22,13 @@ from arrays (`hit_from_arrays`, `shading_geom_from_arrays`), material
 records from arrays and back (`bsdf_from_arrays`, `tuple_to_arrays`:
 BsdfParams or Lobes with their mix child under "mix2." and the
 measured tables under "meas_tables").
+
+The precomputed inputs of the igi, dipolesubsurface and useprobes
+integrators come across as "<prefix>.<field>" arrays of either
+package's VplSets (p, n, le, valid), SurfacePoints (p, n, area, E) and
+ProbeGrid (lo, hi, dims, coeffs, lmax): `vpls_from_arrays`,
+`surface_points_from_arrays`, `probe_grid_from_arrays`, and
+`tuple_to_arrays` back.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from pbrt_tpu_torch.accel.bvh import BVH
 from pbrt_tpu_torch.accel.intersect import Hit, SceneGeom
 from pbrt_tpu_torch.accel.wide_bvh import WideBVH
 from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
+from pbrt_tpu_torch.integrators.extra import ProbeGrid, SurfacePoints, VplSets
 from pbrt_tpu_torch.lights.lighting import EnvMap, LightsT
 from pbrt_tpu_torch.materials.bsdf import BsdfParams
 from pbrt_tpu_torch.photon.map import PhotonMap, RadianceMap
@@ -267,3 +275,23 @@ def bsdf_from_arrays(arrays: dict, device, prefix: str = "params") -> BsdfParams
         else:
             kw[f] = None
     return BsdfParams(**kw)
+
+
+def _tensors(arrays: dict, prefix: str, fields, device, bool_fields=()):
+    return {f: torch.tensor(np.asarray(arrays[f"{prefix}.{f}"]),
+                            dtype=torch.bool if f in bool_fields else torch.float32,
+                            device=device) for f in fields}
+
+
+def vpls_from_arrays(arrays: dict, device, prefix: str = "vpls") -> VplSets:
+    return VplSets(**_tensors(arrays, prefix, VplSets._fields, device, ("valid",)))
+
+
+def surface_points_from_arrays(arrays: dict, device, prefix: str = "pts") -> SurfacePoints:
+    return SurfacePoints(**_tensors(arrays, prefix, SurfacePoints._fields, device))
+
+
+def probe_grid_from_arrays(arrays: dict, device, prefix: str = "probes") -> ProbeGrid:
+    return ProbeGrid(**_tensors(arrays, prefix, ("lo", "hi", "coeffs"), device),
+                     dims=tuple(int(x) for x in np.asarray(arrays[f"{prefix}.dims"])),
+                     lmax=int(np.asarray(arrays[f"{prefix}.lmax"])))

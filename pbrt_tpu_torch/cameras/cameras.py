@@ -4,8 +4,8 @@ Port of pbrt_tpu/cameras/cameras.py (reference cameras/perspective.cpp,
 orthographic.cpp, environment.cpp). Camera space looks down +z, raster
 (0,0) is the upper-left film corner, the screen window defaults to
 [-1,1] on the short axis; the environment camera maps the film to
-(phi, theta) equirectangularly. The realistic lens camera is not yet
-ported.
+(phi, theta) equirectangularly. The realistic lens camera lives in
+cameras/realistic.py.
 """
 from __future__ import annotations
 
@@ -16,13 +16,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.core.error import PbrtError, warning
+from pbrt_tpu_torch.core.error import warning
 from pbrt_tpu_torch.core.geometry import Ray, normalize
 from pbrt_tpu_torch.core.sampling import concentric_sample_disk
 from pbrt_tpu_torch.core.transform import Transform, xform_point_affine, xform_vector
 from pbrt_tpu_torch.scene.paramset import ParamSet
 
-CAM_PERSPECTIVE, CAM_ORTHOGRAPHIC, CAM_ENVIRONMENT = range(3)  # ids as in pbrt_tpu
+CAM_PERSPECTIVE, CAM_ORTHOGRAPHIC, CAM_ENVIRONMENT, CAM_REALISTIC = range(4)  # ids as in pbrt_tpu
 
 
 @dataclass
@@ -38,10 +38,15 @@ class Camera:
     shutter_close: float = 1.0
     width: int = 0
     height: int = 0
+    lens: object = None           # realistic.LensSystem of a realistic camera
 
     def generate_rays(self, px, py, u_lens1, u_lens2, u_time) -> Tuple[Ray, torch.Tensor]:
         """CameraSample batch -> (Ray [N], weight [N]) (reference
         cameras/perspective.cpp:60-100 GenerateRay and its siblings)."""
+        if self.kind == CAM_REALISTIC:
+            from pbrt_tpu_torch.cameras.realistic import realistic_generate_rays
+
+            return realistic_generate_rays(self, px, py, u_lens1, u_lens2, u_time)
         n = px.shape[0]
         dev = px.device
         r2c = torch.as_tensor(self.raster_to_camera, dtype=torch.float32, device=dev)
@@ -99,8 +104,6 @@ def make_camera(name: str, params: ParamSet, cam_to_world: Transform,
                 xres: int, yres: int, shutter_open: float = 0.0,
                 shutter_close: float = 1.0) -> Camera:
     """reference core/api.cpp:606-629 MakeCamera + each Create*Camera."""
-    if name == "realistic":
-        raise PbrtError(f'not yet ported: camera "{name}"')
     aspect = float(xres) / float(yres)
     sopen = params.find_one_float("shutteropen", shutter_open)
     sclose = params.find_one_float("shutterclose", shutter_close)
@@ -115,6 +118,10 @@ def make_camera(name: str, params: ParamSet, cam_to_world: Transform,
         return Camera(kind=CAM_ENVIRONMENT, cam_to_world=cam_to_world.m.astype(np.float32),
                       raster_to_camera=np.eye(4, dtype=np.float32), shutter_open=sopen,
                       shutter_close=sclose, width=xres, height=yres)
+    elif name == "realistic":
+        from pbrt_tpu_torch.cameras.realistic import make_realistic_camera
+
+        return make_realistic_camera(params, cam_to_world, xres, yres, sopen, sclose)
     else:
         if name != "perspective":
             warning(f'Camera "{name}" unknown; using "perspective".')

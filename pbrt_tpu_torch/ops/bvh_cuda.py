@@ -60,17 +60,34 @@ def _pair_steps(pair_block, tile_start, tile_count, sentinel_block: int):
             yield j, tiles[s:s + PLAIN_TILES], blocks[s:s + PLAIN_TILES]
 
 
-def _block_min(rays8, tris16, tiles, blocks):
+def _live_lanes(rays8):
+    """Each tile's lanes with its live ones (tmin < tmax) first, cut to
+    the most live lanes any tile has: [T, W] int64. A dead lane can hit
+    nothing, so only these lanes need testing."""
+    live = (rays8[:, 6] < rays8[:, 7]).view(-1, TILE)
+    order = torch.argsort((~live).to(torch.int8), dim=1, stable=True)
+    return order[:, :int(live.sum(1).max()) if live.shape[0] else 0]
+
+
+def _block_min(rays8, tris16, tiles, blocks, lanes):
     """Per ray of each tile, the minimum t over its leaf block (BIG when
     nothing is hit) and its slot, lowest slot on ties: ([n, TILE] f32,
-    [n, TILE] i64)."""
+    [n, TILE] i64). Only the lanes `lanes` (_live_lanes) are tested; the
+    others get (BIG, 0), as a dead lane's test gives."""
     from pbrt_tpu_torch.accel.intersect import mt_t
 
-    ry = rays8.view(-1, TILE, 8)[tiles]                          # [n, TILE, 8]
-    cols = blocks[:, None] * LEAF_W + torch.arange(LEAF_W, device=rays8.device)[None, :]
+    dev = rays8.device
+    n = tiles.shape[0]
+    ln = lanes[tiles]                                            # [n, W]
+    ry = torch.gather(rays8.view(-1, TILE, 8)[tiles], 1,
+                      ln[..., None].expand(-1, -1, 8))           # [n, W, 8]
+    cols = blocks[:, None] * LEAF_W + torch.arange(LEAF_W, device=dev)[None, :]
     tri = [tris16[c][cols][:, None, :] for c in range(9)]
     t, valid = mt_t(*tri, *(ry[:, :, i:i + 1] for i in range(8)))
-    return torch.min(torch.where(valid, t, torch.full((), BIG, device=rays8.device)), -1)
+    t_w, idx_w = torch.min(torch.where(valid, t, torch.full((), BIG, device=dev)), -1)
+    t_blk = torch.full((n, TILE), BIG, device=dev).scatter_(1, ln, t_w)
+    idx = torch.zeros((n, TILE), dtype=torch.int64, device=dev).scatter_(1, ln, idx_w)
+    return t_blk, idx
 
 
 def wide_sweep_plain(pair_block, tile_start, tile_count, rays8, tris16,
@@ -82,8 +99,9 @@ def wide_sweep_plain(pair_block, tile_start, tile_count, rays8, tris16,
     T = tile_start.shape[0]
     t_view = t_acc.view(T, TILE)
     p_view = p_acc.view(T, TILE)
+    lanes = _live_lanes(rays8)
     for _, tt, bb in _pair_steps(pair_block, tile_start, tile_count, sentinel_block):
-        t_blk, idx = _block_min(rays8, tris16, tt, bb)
+        t_blk, idx = _block_min(rays8, tris16, tt, bb, lanes)
         acc_t, acc_p = t_view[tt], p_view[tt]
         better = t_blk < acc_t
         t_view[tt] = torch.where(better, t_blk, acc_t)
@@ -130,8 +148,9 @@ def wide_sweep_chunked(pair_block, tile_start, tile_count, rays8, tris16,
     T = tile_start.shape[0]
     keys = torch.full((T, TILE), KEY_EMPTY, dtype=torch.int64, device=rays8.device)
     parts: dict = {}
+    lanes = _live_lanes(rays8)
     for j, tt, bb in _pair_steps(pair_block, tile_start, tile_count, sentinel_block):
-        t_blk, idx = _block_min(rays8, tris16, tt, bb)
+        t_blk, idx = _block_min(rays8, tris16, tt, bb, lanes)
         if j // chunk not in parts:
             parts[j // chunk] = torch.full_like(keys, KEY_EMPTY)
         part = parts[j // chunk]

@@ -10,7 +10,9 @@ them as an argument. The adaptive sampler renders a tile in two passes
 (render_tile). The film accumulators can be checkpointed every
 `checkpoint_every` tiles to an npz file and a render resumed from it
 (the JAX package's fields and compatibility check). The probes counters
-tick once per tile.
+tick once per tile. A realistic camera with AF zones focuses before the
+first tile. The surfacepoints and createprobes renderers write their
+point and probe files instead of an image.
 """
 from __future__ import annotations
 
@@ -28,8 +30,9 @@ from pbrt_tpu_torch.core.error import PbrtError, info, progress, warning
 from pbrt_tpu_torch.core.geometry import Ray
 from pbrt_tpu_torch.core.sampling import mul32
 from pbrt_tpu_torch.core.transform import Transform
-from pbrt_tpu_torch.cameras.cameras import make_camera
+from pbrt_tpu_torch.cameras.cameras import CAM_REALISTIC, make_camera
 from pbrt_tpu_torch.film import film as film_mod
+from pbrt_tpu_torch.integrators import extra
 from pbrt_tpu_torch.integrators import photonmap as photonmap_int
 from pbrt_tpu_torch.integrators import photonvolume as photonvolume_int
 from pbrt_tpu_torch.integrators import surface as surf_int
@@ -50,6 +53,12 @@ DEFAULT_TILE_SAMPLES = 1 << 16
 # buffers, lookups inside the march), so their default tile is smaller
 PHOTON_TILE_SAMPLES = 1 << 14
 PHOTON_SURF = ("photonmap", "exphotonmap")
+SURFACE_INTEGRATORS = ("path", "directlighting", "whitted", "ambientocclusion", "igi",
+                       "irradiancecache", "dipolesubsurface", "diffuseprt", "glossyprt",
+                       "useprobes") + PHOTON_SURF
+# the dipole's scattering coefficients when no subsurface material has them
+DIPOLE_SIGMA_A_RGB = (0.0011, 0.0024, 0.014)
+DIPOLE_SIGMA_PS_RGB = (2.55, 3.21, 3.77)
 BIG = 1e30
 M32 = 0xFFFFFFFF
 # what the last render_sampler measured (read by tests and chip_smoke.py):
@@ -67,13 +76,21 @@ def render_scene(ro: RenderOptions, options: Optional[dict] = None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise PbrtError("no CUDA device available; pass device='cpu' to render on the CPU")
     scene = compile_scene(ro, device)  # raises on what is not yet ported
-    if ro.renderer_name != "sampler":
-        warning(f'Renderer "{ro.renderer_name}" unknown; using "sampler".')
     filter_spec = film_mod.make_filter(ro.filter_name, ro.filter_params)
     film = film_mod.make_film(ro.film_name, ro.film_params, filter_spec, options)
     camera = make_camera(ro.camera_name, ro.camera_params,
                          ro.camera_to_world or Transform(), film.xres, film.yres)
     sampler = make_sampler(ro.sampler_name, ro.sampler_params, options)
+    if ro.renderer_name == "surfacepoints":
+        from pbrt_tpu_torch.renderers.surfacepoints import render_surface_points
+
+        return render_surface_points(scene, ro, options)
+    if ro.renderer_name == "createprobes":
+        from pbrt_tpu_torch.renderers.createprobes import render_create_probes
+
+        return render_create_probes(scene, ro, options)
+    if ro.renderer_name != "sampler":
+        warning(f'Renderer "{ro.renderer_name}" unknown; using "sampler".')
     return render_sampler(scene, ro, film, camera, sampler, options)
 
 
@@ -117,15 +134,34 @@ def build_li_fn(scene: CompiledScene, ro: RenderOptions, options: dict):
     if scene.volume is not None:
         n_steps = vol_int.pick_n_steps(scene.volume, step_size, cap=32 if quick else 128)
     trans_fn = _make_transmittance_fn(scene, max(4, n_steps // 2))
-    if sname not in ("path", "directlighting", "whitted", "ambientocclusion") + PHOTON_SURF:
+    if sname not in SURFACE_INTEGRATORS:
         warning(f'SurfaceIntegrator "{sname}" unknown; using "path".')
         sname = "path"
     if scene.volume is not None and vname not in ("none", "emission", "single", "photonvolume"):
         warning(f'VolumeIntegrator "{vname}" unknown; using "single".')
         vname = "single"
+    seed0 = int(options.get("seed", 0))
     ctx = None
     if uses_photons(ro):
         ctx = shooter.build_photon_maps(scene, sp, vp, options)
+    vpls = points = probes = sigma = None
+    if sname == "igi":
+        n_lights = sp.find_one_int("nlights", 64)
+        if quick:
+            n_lights = max(4, n_lights // 8)
+        vpls = extra.generate_vpls(scene, sp.find_one_int("nsets", 4), max(1, n_lights // 4),
+                                   max_depth, seed0)
+    elif sname == "dipolesubsurface":
+        points = _dipole_points(scene, sp, seed0)
+        sigma = _dipole_sigma(scene)
+    elif sname == "useprobes":
+        from pbrt_tpu_torch.renderers.createprobes import load_probes
+
+        fn = sp.find_one_string("filename", "probes.npz")
+        try:
+            probes = load_probes(fn, scene.geom.tri_v0.device)
+        except OSError as e:
+            warning(f"useprobes: cannot load {fn}: {e}")
 
     def surface_li(ray, pixel, sidx, seed):
         if sname in PHOTON_SURF:
@@ -142,6 +178,30 @@ def build_li_fn(scene: CompiledScene, ro: RenderOptions, options: dict):
             ns = sp.find_one_int("nsamples", 16 if quick else 2048)
             return surf_int.li_ao(scene, ray, pixel, sidx, n_samples=min(ns, 64),
                                   max_dist=sp.find_one_float("maxdist", BIG), seed=seed)
+        if sname == "igi":
+            return extra.li_igi(scene, vpls, ray, pixel, sidx, max_depth=max_depth,
+                                g_limit=sp.find_one_float("glimit", 10.0), seed=seed,
+                                transmittance_fn=trans_fn)
+        if sname == "irradiancecache":
+            ns = sp.find_one_int("nsamples", 4096)
+            return extra.li_irradiance(scene, ray, pixel, sidx,
+                                       n_samples=min(max(ns // 256, 4), 32), seed=seed,
+                                       transmittance_fn=trans_fn)
+        if sname == "dipolesubsurface":
+            return extra.li_dipole(scene, points, ray, pixel, sidx, sigma_a=sigma[0],
+                                   sigma_ps=sigma[1], scale=sp.find_one_float("scale", 1.0),
+                                   seed=seed, transmittance_fn=trans_fn)
+        if sname == "diffuseprt":
+            # the scene's nsamples (reference default 4096), capped: the
+            # transfer is evaluated again for every camera sample
+            ns = 8 if quick else min(64, max(16, sp.find_one_int("nsamples", 4096) // 64))
+            return extra.li_diffuseprt(scene, ray, pixel, sidx, lmax=sp.find_one_int("lmax", 4),
+                                       n_samples=ns, seed=seed)
+        if sname == "glossyprt":
+            return extra.li_glossyprt(scene, ray, pixel, sidx, lmax=sp.find_one_int("lmax", 4),
+                                      roughness=sp.find_one_float("roughness", 0.1), seed=seed)
+        if sname == "useprobes":
+            return extra.li_useprobes(scene, probes, ray, pixel, sidx, seed=seed)
         return surf_int.li_path(scene, ray, pixel, sidx, max_depth=max_depth, seed=seed,
                                 transmittance_fn=trans_fn)
 
@@ -162,6 +222,35 @@ def build_li_fn(scene: CompiledScene, ro: RenderOptions, options: dict):
         return vr.Tr * L_surf + vr.L
 
     return li
+
+
+def _dipole_points(scene: CompiledScene, sp, seed: int):
+    """dipolesubsurface's surface points (from "pointsfile", else made
+    at "minsampledistance") with their irradiance."""
+    from pbrt_tpu_torch.renderers.surfacepoints import generate_surface_points
+
+    mind = sp.find_one_float("minsampledistance", 0.25)
+    pfile = sp.find_one_string("pointsfile", "")
+    if pfile:
+        z = np.load(pfile)
+        p, n, a = z["p"], z["n"], z["area"]
+    else:
+        p, n, a = generate_surface_points(scene, mind, seed)
+    dev = scene.geom.tri_v0.device
+    pts = extra.SurfacePoints(p=torch.as_tensor(p, device=dev), n=torch.as_tensor(n, device=dev),
+                              area=torch.as_tensor(a, device=dev),
+                              E=torch.zeros((len(p), spectrum.N_BINS), device=dev))
+    return extra.compute_point_irradiance(scene, pts, seed)
+
+
+def _dipole_sigma(scene: CompiledScene):
+    """(sigma_a, sigma'_s) spectra of the first subsurface material that
+    carries them, else the JAX package's defaults."""
+    for m in scene.materials:
+        if m.kind in ("subsurface", "kdsubsurface") and "sigma_a" in m.spectra:
+            return m.spectra["sigma_a"], m.spectra["sigma_prime_s"]
+    return (spectrum.from_rgb(np.asarray(DIPOLE_SIGMA_A_RGB, np.float32)),
+            spectrum.from_rgb(np.asarray(DIPOLE_SIGMA_PS_RGB, np.float32)))
 
 
 def uses_photons(ro: RenderOptions) -> bool:
@@ -252,6 +341,11 @@ def render_sampler(scene: CompiledScene, ro: RenderOptions, film, camera, sample
     seed = int(options.get("seed", 0))
     spp = sampler.spp
     device = scene.geom.tri_v0.device
+    if camera.kind == CAM_REALISTIC and camera.lens.af_zones:
+        # reference samplerrenderer.cpp:202 camera->AutoFocus
+        from pbrt_tpu_torch.cameras.realistic import autofocus
+
+        autofocus(scene, camera, film, li_fn, seed=seed, spp=4 if options.get("quick") else 16)
     tile_samples = int(options.get("tile_samples")
                        or (PHOTON_TILE_SAMPLES if uses_photons(ro) else DEFAULT_TILE_SAMPLES))
     pix_per_tile = max(1, tile_samples // spp)

@@ -6,9 +6,11 @@ shapes and instances, every light kind (point, spot, goniometric,
 projection, distant, infinite with its importance table, and diffuse
 area lights on meshes and quadrics), volume regions, every material
 kind with any texture, measured BRDF tables, and bump mapping.
-Everything else a scene may use that the JAX package knows fails here
-with "not yet ported: <name>" — the compiler never substitutes
-something else.
+The tessellated shapes (heightfield, loopsubdiv, nurbs) arrive as
+triangle meshes. What else a scene may name that the JAX package knows
+(the metropolis and aggregatetest renderers, the grid and kdtree
+accelerators) fails here with "not yet ported: <name>" — the compiler
+never substitutes something else.
 """
 from __future__ import annotations
 
@@ -44,11 +46,6 @@ from pbrt_tpu_torch.volumes.registry import VolumeT, build_volumes
 
 S = spec.N_BINS
 
-# names the JAX package renders and this package does not yet; names
-# that neither knows warn and fall back in the render driver
-_SURF_NOT_PORTED = ("igi", "irradiancecache", "dipolesubsurface", "diffuseprt", "glossyprt",
-                    "useprobes")
-
 
 def not_ported(what: str):
     raise PbrtError(f"not yet ported: {what}")
@@ -71,6 +68,7 @@ class CompiledScene:
     meas_index: dict = field(default_factory=dict)  # id(material) -> table row
     alpha_textures: list = field(default_factory=list)  # alpha masks (texture or float)
     tri_alpha: object = None               # [T] int64 row of alpha_textures (-1 none)
+    light_sh: dict = field(default_factory=dict)   # lmax -> the lights' SH projection
 
     # how many alpha-masked layers a single ray can punch through
     # (the reference's recursive skip is unbounded; 4 covers real scenes)
@@ -142,10 +140,10 @@ def _material_index(mat: Optional[MaterialRecord], materials: List[MaterialRecor
 
 
 def _check_options(ro: RenderOptions):
-    if ro.renderer_name in ("metropolis", "aggregatetest", "surfacepoints", "createprobes"):
+    """Names the JAX package renders and this package does not yet;
+    names that neither knows warn and fall back in the render driver."""
+    if ro.renderer_name in ("metropolis", "aggregatetest"):
         not_ported(f'renderer "{ro.renderer_name}"')
-    if ro.surf_integrator_name in _SURF_NOT_PORTED:
-        not_ported(f'surface integrator "{ro.surf_integrator_name}"')
     if ro.accelerator_name in ("grid", "kdtree"):
         not_ported(f'accelerator "{ro.accelerator_name}"')
 

@@ -1,18 +1,17 @@
 """Shape factory: plugin name + params -> triangles and/or quadric records.
 
 Port of pbrt_tpu/shapes/registry.py (reference core/api.cpp:321-361
-MakeShape and shapes/*.cpp) for "trianglemesh" and the six quadrics.
-Two lowered representations:
+MakeShape and shapes/*.cpp) for every shape it knows. Two lowered
+representations:
 
 - TriangleData: world-space triangle soup with optional shading normals
-  and uvs (reference shapes/trianglemesh.cpp).
+  and uvs (reference shapes/trianglemesh.cpp); the heightfield, Loop
+  subdivision surfaces (shapes/loopsubdiv.py) and NURBS patches
+  (shapes/nurbs.py) are tessellated into it on the host.
 - QuadricData: analytic quadrics kept exact (sphere, cylinder, disk,
   cone, paraboloid, hyperboloid) with object-to-world transforms and the
   standard pbrt partial ranges (zmin/zmax/phimax, disk innerradius),
   intersected analytically (accel/intersect.py).
-
-The tessellated shapes (heightfield, loopsubdiv, nurbs) are not yet
-ported and fail with a clear error.
 """
 from __future__ import annotations
 
@@ -51,9 +50,6 @@ class QuadricData:
 class ShapeData:
     triangles: List[TriangleData] = field(default_factory=list)
     quadrics: List[QuadricData] = field(default_factory=list)
-
-
-_NOT_PORTED = ("heightfield", "loopsubdiv", "nurbs")
 
 
 def _clamped_z(params: ParamSet, radius: float):
@@ -121,12 +117,21 @@ def make_shape(name: str, params: ParamSet, o2w: Transform, w2o: Transform,
         rmax = max(np.hypot(pp1[0], pp1[1]), np.hypot(pp2[0], pp2[1]))
         quad(QUAD_HYPERBOLOID, [rmax, min(pp1[2], pp2[2]), max(pp1[2], pp2[2]), phimax,
                                 float(ac[0]), float(ac[1])])
-    elif name == "trianglemesh":
-        tri = _make_triangle_mesh(params, o2w, reverse_orientation)
+    elif name in ("trianglemesh", "heightfield", "loopsubdiv", "nurbs"):
+        if name == "trianglemesh":
+            tri = _make_triangle_mesh(params, o2w, reverse_orientation)
+        elif name == "heightfield":
+            tri = _make_heightfield(params, o2w)
+        elif name == "loopsubdiv":
+            from pbrt_tpu_torch.shapes.loopsubdiv import make_loop_subdiv
+
+            tri = make_loop_subdiv(params, o2w)
+        else:
+            from pbrt_tpu_torch.shapes.nurbs import make_nurbs
+
+            tri = make_nurbs(params, o2w)
         if tri is not None:
             sd.triangles.append(tri)
-    elif name in _NOT_PORTED:
-        raise PbrtError(f'not yet ported: shape "{name}"')
     else:
         warning(f'Shape "{name}" unknown.')
         return None
@@ -170,6 +175,29 @@ def _make_triangle_mesh(params: ParamSet, o2w: Transform,
         p=world_p, indices=vi.reshape(-1, 3).astype(np.int32), n=world_n, uv=uvs,
         alpha_tex=None,
     )
+
+
+def _make_heightfield(params: ParamSet, o2w: Transform) -> Optional[TriangleData]:
+    """reference shapes/heightfield.cpp: an nu x nv grid of heights Pz
+    over the unit square -> two triangles a cell."""
+    nu = params.find_one_int("nu", -1)
+    nv = params.find_one_int("nv", -1)
+    pz = params.find_float("Pz")
+    if nu == -1 or nv == -1 or pz is None:
+        warning("Must provide nu, nv, and Pz for heightfield")
+        return None
+    if len(pz) != nu * nv:
+        raise PbrtError(f"heightfield: {len(pz)} Pz values for nu x nv = {nu * nv}")
+    x, yv = np.meshgrid(np.linspace(0, 1, nu), np.linspace(0, 1, nv), indexing="xy")
+    pts = np.stack([x.ravel(), yv.ravel(), np.asarray(pz, np.float32)], axis=-1)
+    uv = np.stack([x.ravel(), yv.ravel()], axis=-1).astype(np.float32)
+    j, i = np.meshgrid(np.arange(nv - 1), np.arange(nu - 1), indexing="ij")
+    v00 = (j * nu + i).ravel()
+    v10, v01 = v00 + 1, v00 + nu
+    v11 = v01 + 1
+    idx = np.stack([v00, v10, v11, v00, v11, v01], -1).reshape(-1, 3)
+    world_p = xform_point_affine(o2w.m, pts.astype(np.float64)).astype(np.float32)
+    return TriangleData(p=world_p, indices=idx.astype(np.int32), uv=uv)
 
 
 def tessellate_quadric(q: QuadricData, n_phi: int = 64, n_v: int = 16):

@@ -90,6 +90,69 @@ def test_plain_sweep_matches_pallas_sweep(wide):
     np.testing.assert_allclose(t_acc.numpy(), t_ref, rtol=1e-5)
 
 
+def test_plain_sweeps_with_dead_lanes_match(wide, monkeypatch):
+    """Every tile has dead lanes (tmin >= tmax), one tile has no live lane
+    at all, so the plain sweeps test fewer lanes than a tile holds. Prim
+    ids identical to pbrt_tpu's _sweep_pairs(interpret=True), t within
+    1e-5 relative (the module's FMA tolerance) or 1e-6 absolute (a near
+    hit's t is rounded on the scale of the coordinates, ~10); and both
+    plain sweeps bit for bit equal to the fold that tests every lane of
+    every tile."""
+    _, _, jw, tw = wide
+    rng = np.random.RandomState(11)
+    T = 4
+    o, d, tmin, tmax = random_rays(T * TILE, seed=12)
+    tmax = np.where(np.isfinite(tmax), tmax, 1e30).astype(np.float32)
+    live_frac = np.repeat([0.5, 0.9, 0.0, 0.03], TILE)
+    dead = rng.rand(T * TILE) >= live_frac
+    tmin = np.where(dead & (rng.rand(T * TILE) < 0.5), tmax, tmin)     # tmin == tmax
+    tmin = np.where(dead & (tmin < tmax), tmax + 1.0, tmin).astype(np.float32)
+    rays8 = np.concatenate([o, d, tmin[:, None], tmax[:, None]], -1)
+    t0 = rng.uniform(1, 12, T * TILE).astype(np.float32)
+    B = tw.n_blocks
+    lst = np.full((T, MAX_L), B, np.int32)
+    nl = np.array([B, B - 1, B, B - 3], np.int32)
+    for i in range(T):
+        lst[i, :nl[i]] = rng.permutation(B)[:nl[i]]
+
+    pair_tile, pair_block, total = jbp._compact_pairs(jnp.asarray(lst), jnp.asarray(nl), T, B)
+    assert int(total) <= jbp.PAIR_CHUNK
+    rays8p = np.concatenate([rays8, np.zeros((TILE, 8), np.float32)])
+    t3 = np.concatenate([t0, np.full(TILE, -1e30, np.float32)]).reshape(T + 1, 8, 128)
+    p3 = np.full((T + 1, 8, 128), -1, np.int32)
+    t_ref, p_ref = jbp._sweep_pairs(pair_tile[:jbp.PAIR_CHUNK], pair_block[:jbp.PAIR_CHUNK],
+                                    jnp.asarray(rays8p), jnp.asarray(t3), jnp.asarray(p3),
+                                    jw.tris16, interpret=True)
+    t_ref = np.asarray(t_ref)[:T].reshape(-1)
+    p_ref = np.asarray(p_ref)[:T].reshape(-1)
+
+    rays = torch.as_tensor(rays8).contiguous()
+    live = (rays[:, 6] < rays[:, 7]).view(T, TILE)
+    assert int(live[2].sum()) == 0 and bool((live.sum(1) < TILE).all())
+    assert bvh_cuda._live_lanes(rays).shape == (T, int(live.sum(1).max()))
+    pb, start, count = bvh_cuda._compact_pairs(torch.as_tensor(lst), torch.as_tensor(nl))
+    args = (pb, start, count, rays, tw.tris16, tw.n_blocks)
+    p_init = torch.full((T * TILE,), -1, dtype=torch.int32)
+    chunks = list(range(-(-int(count.max()) // 3) - 1, -1, -1))   # merged last chunk first
+
+    def sweeps():
+        t_p, p_p = bvh_cuda.wide_sweep_plain(*args, torch.as_tensor(t0).clone(), p_init.clone())
+        t_c, p_c = bvh_cuda.wide_sweep_chunked(*args, torch.as_tensor(t0).clone(),
+                                               p_init.clone(), chunk=3, order=chunks)
+        return (t_p, p_p), (t_c, p_c)
+
+    got = sweeps()
+    monkeypatch.setattr(bvh_cuda, "_live_lanes", lambda r: torch.arange(TILE).expand(T, TILE))
+    full = sweeps()[0]
+    for t, p in got:
+        np.testing.assert_array_equal(p.numpy(), p_ref)
+        np.testing.assert_allclose(t.numpy(), t_ref, rtol=1e-5, atol=1e-6)
+        assert torch.equal(p, full[1]) and torch.equal(t.view(torch.int32),
+                                                       full[0].view(torch.int32))
+    hit = p_ref >= 0
+    assert hit.sum() > 100 and not hit[dead].any() and not hit[2 * TILE:3 * TILE].any()
+
+
 @pytest.mark.parametrize("coherent", [False, True])
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_wide_t_pass_matches_pallas(wide, coherent, any_hit, monkeypatch):
@@ -235,8 +298,10 @@ def test_port_builds_with_its_own_builder_source():
     """In a fresh interpreter the port builds a BVH and imports its
     textures, noise and measured-BRDF modules (and the bridge), and its
     lights, samplers (reading its own best-candidate table), cameras,
-    transforms, probes, compiler and render driver, without importing
-    jax or pbrt_tpu and without opening or running anything under
+    transforms, probes, compiler and render driver (and the realistic
+    camera, the extra integrators with the SH module, the surfacepoints
+    and createprobes renderers, and the loopsubdiv and nurbs shapes),
+    without importing jax or pbrt_tpu and without opening or running anything under
     pbrt_tpu/; its builder source is byte-identical to the
     reference's."""
     import os
@@ -267,7 +332,11 @@ from pbrt_tpu_torch.samplers import samplers
 from pbrt_tpu_torch.cameras import cameras
 from pbrt_tpu_torch.lights import lighting
 from pbrt_tpu_torch.scene import api, compile, records
-from pbrt_tpu_torch.renderers import driver
+from pbrt_tpu_torch.renderers import driver, surfacepoints, createprobes
+from pbrt_tpu_torch.cameras import realistic
+from pbrt_tpu_torch.integrators import extra
+from pbrt_tpu_torch.core import sh
+from pbrt_tpu_torch.shapes import loopsubdiv, nurbs
 assert samplers._bc_buckets(4)[1].shape[1:] == (4, 2)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pbrt_tpu")]
 assert not bad, bad

@@ -1,10 +1,12 @@
 """The reference-binary goldens rendered by the port on the CPU.
 
-`matte`, `meshdl`, `mesh`, `smoke`, `vol` and `disp` (quadrics,
-directlighting, path, dispersive glass, single scattering in a
-homogeneous volume, photon mapping of a dispersive caustic) are rendered
-at their authored size and sample count and held to the bounds of
-tests/test_reference_golden.py against the reference binary's images.
+`matte`, `meshdl`, `mesh`, `smoke`, `vol`, `disp`, `irr` and `dprt`
+(quadrics, directlighting, path, dispersive glass, single scattering in
+a homogeneous volume, photon mapping of a dispersive caustic, the
+cache-free irradiance cache under a disk area light, diffuse PRT under a
+distant light) are rendered at their authored size and sample count and
+held to the bounds of tests/test_reference_golden.py against the
+reference binary's images.
 
 Then each but `disp` (tests/test_torch_photon_*.py hold the photon
 integrators against the JAX package) is rendered by the port and by the JAX package at the same
@@ -17,7 +19,10 @@ tests/test_torch_slice.py). To keep the JAX package's CPU compile short
 the crops cut maxdepth: to 1 for matte and vol (every surface is
 diffuse, so directlighting follows no ray past depth 0 and the image is
 the authored one), to 2 for meshdl and mesh, and to 3 for smoke (the
-floor seen through the glass sphere).
+floor seen through the glass sphere). `irr` and `dprt` take no maxdepth
+(their integrators trace one camera hit); their crops keep the authored
+integrator, dprt's with 1024 transfer samples (16 rays a hit, against the
+authored 64) to keep the JAX package's compile short.
 """
 import os
 import re
@@ -35,10 +40,12 @@ from test_reference_golden import CASES, GOLDEN_DIR
 
 torch.set_num_threads(1)  # small tensors: intra-op threads only contend with the other test workers
 
-PORTED = ("matte", "meshdl", "mesh", "smoke", "vol", "disp")
-CROPPED = PORTED[:5]
+PORTED = ("matte", "meshdl", "mesh", "smoke", "vol", "disp", "irr", "dprt")
+CROPPED = ("matte", "meshdl", "mesh", "smoke", "vol", "irr", "dprt")
 BOUNDS = {name: (mean_rtol, pix) for name, mean_rtol, pix in CASES if name in PORTED}
 CROP_DEPTH = {"matte": 1, "vol": 1, "meshdl": 2, "mesh": 2, "smoke": 3}
+CROP_INTEGRATOR = {"dprt": 'SurfaceIntegrator "diffuseprt" "integer lmax" [4] '
+                           '"integer nsamples" [1024]'}
 CROP = (0.3125, 0.6875, 0.3125, 0.6875)
 
 
@@ -46,6 +53,10 @@ def render(api, parser, path):
     opts = {"quiet": True, "write": False}
     if api is t_api:
         opts.update(device="cpu")
+    else:   # the JAX package's light-SH cache is keyed by id(scene) (ROADMAP R20)
+        from pbrt_tpu.integrators import extra
+
+        extra._LIGHT_SH_CACHE.clear()
     api.pbrt_init(opts)
     try:
         parser.parse_file(str(path))
@@ -100,7 +111,8 @@ def assert_same_render(tmp_path, text):
 
 @pytest.mark.parametrize("name", CROPPED)
 def test_port_matches_jax_on_crop(tmp_path, name):
-    assert_same_render(tmp_path, golden_text(name, crop=CROP, spp=4, depth=CROP_DEPTH[name]))
+    assert_same_render(tmp_path, golden_text(name, crop=CROP, spp=4, depth=CROP_DEPTH.get(name),
+                                             integrator=CROP_INTEGRATOR.get(name)))
 
 
 @pytest.mark.parametrize("integrator", ['SurfaceIntegrator "whitted"',

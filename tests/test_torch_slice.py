@@ -143,41 +143,78 @@ def test_bridge_round_trip(compiled):
             np.testing.assert_array_equal(val, ref[key].astype(val.dtype), err_msg=key)
 
 
-NOT_PORTED = {
-    "heightfield": 'Shape "heightfield" "integer nu" [2] "integer nv" [2] '
-                   '"float Pz" [0 0 0 0]',
+FORMERLY_NOT_PORTED = {
+    "heightfield": 'Shape "heightfield" "integer nu" [3] "integer nv" [3] '
+                   '"float Pz" [0 .2 0 .1 .3 .1 0 .2 0]',
     "nurbs": 'Shape "nurbs" "integer nu" [2] "integer nv" [2] "integer uorder" [2] '
              '"integer vorder" [2] "float uknots" [0 0 1 1] "float vknots" [0 0 1 1] '
-             '"point P" [0 0 0 1 0 0 0 1 0 1 1 0]',
-    "loopsubdiv": 'Shape "loopsubdiv" "integer indices" [0 1 2] "point P" [0 0 0 1 0 0 0 1 0]',
+             '"point P" [-1 0.5 -1 1 0.5 -1 -1 0.5 1 1 0.5 1]',
+    "loopsubdiv": 'Shape "loopsubdiv" "integer nlevels" [2] "integer indices" [0 1 2 0 2 3] '
+                  '"point P" [-1 .5 -1 1 .5 -1 1 .5 1 -1 .5 1]',
+}
+FORMERLY_NOT_PORTED_OPTIONS = {
+    "realistic camera": 'Camera "realistic" "string specfile" "{lens}" '
+                        '"float filmdistance" [52] "float aperture_diameter" [6] '
+                        '"float filmdiag" [40]',
+    "irradiancecache": 'SurfaceIntegrator "irradiancecache" "integer nsamples" [512]',
+    "dipolesubsurface": 'SurfaceIntegrator "dipolesubsurface" "float minsampledistance" [0.5]',
+    "igi": 'SurfaceIntegrator "igi" "integer nlights" [8] "integer nsets" [2] '
+           '"integer maxdepth" [2]',
 }
 NOT_PORTED_OPTIONS = {
-    "realistic camera": 'Camera "realistic"',
-    "irradiancecache": 'SurfaceIntegrator "irradiancecache"',
-    "dipolesubsurface": 'SurfaceIntegrator "dipolesubsurface"',
     "grid accelerator": 'Accelerator "grid"',
     "kdtree accelerator": 'Accelerator "kdtree"',
-    "igi": 'SurfaceIntegrator "igi"',
     "metropolis": 'Renderer "metropolis"',
+    "aggregatetest": 'Renderer "aggregatetest"',
 }
 
 
-@pytest.mark.parametrize("what", list(NOT_PORTED) + list(NOT_PORTED_OPTIONS))
-def test_unported_features_fail_clearly(tmp_path, what):
-    """Anything outside the slice fails with 'not yet ported', never a
-    warning and a substitute."""
-    opts = NOT_PORTED_OPTIONS.get(what, "")
-    world = NOT_PORTED.get(what, "")
+def _feature_scene(tmp_path, opts, world, res=4):
+    if "SurfaceIntegrator" not in opts:   # a short compile for the JAX package
+        opts += '\nSurfaceIntegrator "directlighting" "integer maxdepth" [1]'
     path = tmp_path / "scene.pbrt"
-    path.write_text('Film "image" "integer xresolution" [4] "integer yresolution" [4]\n'
-                    + opts + "\nWorldBegin\n" + world + "\n"
-                    + mesh(QUAD, QUAD_IDX) + "WorldEnd\n")
+    path.write_text(f'Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]\n'
+                    'Sampler "lowdiscrepancy" "integer pixelsamples" [1]\n'
+                    'LookAt 0 3 -3  0 0 0  0 1 0\nCamera "perspective" "float fov" [60]\n'
+                    + opts + "\nWorldBegin\n"
+                    'LightSource "point" "point from" [1 4 -2] "rgb I" [20 20 20]\n'
+                    + world + "\n" + mesh(QUAD * 3, QUAD_IDX) + "WorldEnd\n")
+    return path
+
+
+@pytest.mark.parametrize("what", list(NOT_PORTED_OPTIONS))
+def test_unported_features_fail_clearly(tmp_path, what):
+    """Anything outside the port fails with 'not yet ported', never a
+    warning and a substitute."""
+    path = _feature_scene(tmp_path, NOT_PORTED_OPTIONS[what], "")
     t_api.pbrt_init({"quiet": True, "write": False, "device": "cpu"})
     try:
         with pytest.raises(PbrtError, match="not yet ported"):
             t_parser.parse_file(str(path))
     finally:
         t_api._state.__init__()
+
+
+@pytest.mark.parametrize("what", list(FORMERLY_NOT_PORTED) + list(FORMERLY_NOT_PORTED_OPTIONS))
+def test_formerly_unported_features_render(tmp_path, what):
+    """The shapes, camera and integrators an earlier port refused render
+    a finite 8 x 8 image equal to the JAX package's (the whole-slice
+    limits below)."""
+    from test_realistic_camera import LENS
+
+    opts = FORMERLY_NOT_PORTED_OPTIONS.get(what, "").replace("{lens}", LENS)
+    world = FORMERLY_NOT_PORTED.get(what, "")
+    if what == "dipolesubsurface":
+        world = 'Material "subsurface" "string name" ["Marble"]\n' + world
+    path = _feature_scene(tmp_path, opts, world, res=8)
+    tile = {"tile_samples": 64}   # one tile of exactly the image's samples in both packages
+    ref = _render(j_api, j_parser, path, tile)
+    got = _render(t_api, t_parser, path, tile)
+    assert got.shape == ref.shape == (8, 8, 3)
+    assert np.all(np.isfinite(got)) and got.mean() > 0
+    assert abs(got.mean() - ref.mean()) <= 5e-3 * ref.mean()
+    rel = (np.abs(got - ref) / np.maximum(np.abs(ref), 1e-6)).max(-1)
+    assert (rel <= 1e-3).mean() >= 0.99
 
 
 def test_unknown_integrators_warn_and_fall_back(tmp_path, capsys, monkeypatch):
@@ -217,8 +254,9 @@ def test_unknown_integrators_warn_and_fall_back(tmp_path, capsys, monkeypatch):
         np.testing.assert_array_equal(images[key], images["path", "single"])
 
 
-def _render(api, parser, path):
-    api.pbrt_init({"quiet": True, "write": False, "device": "cpu", "tile_samples": 4096})
+def _render(api, parser, path, options=None):
+    api.pbrt_init({"quiet": True, "write": False, "device": "cpu", "tile_samples": 4096,
+                   **(options or {})})
     try:
         parser.parse_file(str(path))
         return np.asarray(api._state.output)
