@@ -33,7 +33,15 @@ irradiancecache ([22]), the goldens irr and dprt ([23]), the small scene
 under igi, dipolesubsurface, diffuseprt, glossyprt and the
 surfacepoints -> createprobes -> useprobes chain, every K1 launch bit
 for bit ([24]), and autofocus on the card against the CPU ([25]); then
-it prints one JSON line per the contract below. Every phase raises on
+metropolis ([26]: the bidirectional paths of 4,096 chains on the small
+scene, every K1 launch bit for bit, against the CPU, and on the bench
+geometry, every K2 wave checked; MLT against the sampler renderer;
+benchmlt, the bench geometry under metropolis), the grid and kd-tree
+accelerators ([27]: the small scene card vs CPU vs the default
+accelerator; the bench geometry under the grid and benchkd under the
+kd-tree, timed with their host builds), aggregatetest on the motion
+bench geometry ([28]) and the tools ([29]: bsdftest card vs CPU,
+exrdiff, obj2pbrt); then it prints one JSON line per the contract below. Every phase raises on
 failure; the script then exits
 non-zero and prints no result. It needs no network and no JAX.
 
@@ -111,6 +119,16 @@ BENCHLENS_CROP = (0.25, 0.265625, 0.5, 0.515625)   # [21]'s 16 x 16 CPU crop
 BENCHIRR_RES = 512         # [22], cut from 1024^2: ~17 closest-hit + 17 shadow traversals a tile
 BENCHIRR_CROP = (0.4375, 0.46875, 0.28125, 0.3125)   # [22]'s 16 x 16 CPU crop (on the sphere)
 AF_RES, AF_OBJ = 48, 500.0   # [25]: the textured plane 500 units behind the lens
+MLT_W = 4096               # [26]: the chains in flight (renderers/metropolis.py W_CHAINS)
+MLT_RES = 32               # [26b]: MLT against the sampler renderer on the small scene
+# [26c]: benchmlt, the bench geometry under metropolis; cut from 256^2,
+# which took 62.15 s on an H100 80GB HBM3 at 700 W (PERF.md)
+BENCHMLT_RES = 128
+GRID_BENCH_RES = 256       # [27]: the bench geometry under Accelerator "grid"
+# [27]'s kd-tree scene: the bench layout with a 100 x 100 sphere (20,002
+# triangles), the largest of scripts/port_accel_build_times.py's sizes
+# whose kd-tree build took at most 30 s on a CPU (28.9 s; PERF.md)
+KD_SPHERE, KD_RES = 100, 128
 
 
 def log(msg):
@@ -1903,6 +1921,395 @@ def run_longtail_phases(tmp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# [26]-[29]: metropolis, the grid and kd-tree, aggregatetest, the tools
+
+def with_line(text, line):
+    """The scene with an option line (Renderer, Accelerator) before WorldBegin."""
+    return text.replace("WorldBegin\n", line + "\nWorldBegin\n", 1)
+
+
+def bench_accel_text(res, accel, n=260):
+    """bench_scene_text's layout with an n x n UV sphere under
+    Accelerator `accel`, directlighting maxdepth 1 (a camera walk and a
+    shadow walk), 1 spp."""
+    P, idx = uv_sphere(n, n, 1.0, (0.0, 0.4, 0.0))
+    head = bench_scene_text(res).split('Material "matte" "rgb Kd" [.45')[0]
+    head = head.replace('SurfaceIntegrator "path" "integer maxdepth" [5]',
+                        'SurfaceIntegrator "directlighting" "integer maxdepth" [1]')
+    return with_line(head + 'Material "matte" "rgb Kd" [.45 .35 .65]\n' + mesh(P, idx)
+                     + 'Material "matte" "rgb Kd" [.55 .55 .5]\n' + mesh(FLOOR, FLOOR_IDX)
+                     + "WorldEnd\n", f'Accelerator "{accel}"')
+
+
+def scene_parts(text, name, tmp, device):
+    """(CompiledScene, Film, camera) of a scene on `device`."""
+    from pbrt_tpu_torch.cameras.cameras import make_camera
+    from pbrt_tpu_torch.core.transform import Transform
+    from pbrt_tpu_torch.film import film as film_mod
+
+    scene, ro = compile_text(text, name, tmp, device)
+    film = film_mod.make_film(ro.film_name, ro.film_params,
+                              film_mod.make_filter(ro.filter_name, ro.filter_params))
+    cam = make_camera(ro.camera_name, ro.camera_params, ro.camera_to_world or Transform(),
+                      film.xres, film.yres)
+    return scene, film, cam
+
+
+class BuildTimer:
+    """Stands in for a host tree build: its seconds, call by call."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds = fn, []
+
+    def __call__(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def phase_mlt(tmp):
+    """[26] metropolis: (a) path_l_psamples on MLT_W seeded primary-sample
+    vectors (the small scene, maxdepth 5, bidirectional) on the card,
+    every K1 launch bit-equal to the plain twin, and on the CPU, within
+    agree()'s limits; (a') the same on the bench geometry on the card,
+    every K2 wave held against the plain version; (b) the small scene at
+    MLT_RES^2 under metropolis (16 mutations a pixel, direct pass
+    separate) against the sampler renderer (8 spp) on the card: image
+    means within 15%, 4 x 4 block means within 0.35 relative on average;
+    (c) benchmlt: the bench geometry under metropolis (4 mutations a
+    pixel, maxdepth 5) at BENCHMLT_RES^2 through the CLI, with CUDA events
+    around every K2 launch -> dict."""
+    import torch
+
+    from pbrt_tpu_torch.integrators import bidir
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+    from pbrt_tpu_torch.renderers import metropolis
+
+    out = {}
+    D = bidir.n_psample_dims(5, True)
+    u = np.random.RandomState(26).rand(MLT_W, D).astype(np.float32)
+    paths = {}
+    for dev in ("cuda", "cpu"):
+        scene, film, cam = scene_parts(small_scene_text(MLT_RES, 1), f"mlt_paths_{dev}", tmp,
+                                       dev)
+        ut = torch.as_tensor(u, device=dev)
+        if dev == "cuda":
+            rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
+            intersect_cuda.launches = 0
+            with NoPlain(), Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
+                res, sec = host_s(lambda: bidir.path_l_psamples(scene, cam, film, ut, 5))
+            k1 = rec.summary()
+            if k1["launches"] <= 0 or k1["launches"] != intersect_cuda.launches:
+                raise RuntimeError(f"[26a] {k1['launches']} K1 launches checked of "
+                                   f"{intersect_cuda.launches}")
+        else:
+            t0 = time.perf_counter()
+            res = bidir.path_l_psamples(scene, cam, film, ut, 5)
+            sec = time.perf_counter() - t0
+        paths[dev] = [x.cpu().numpy() for x in res] + [sec]
+    (gpx, gpy, gL, g_sec), (cpx, cpy, cL, c_sec) = paths["cuda"], paths["cpu"]
+    if not (np.array_equal(gpx, cpx) and np.array_equal(gpy, cpy)):
+        raise RuntimeError("[26a] the chains' raster positions differ between card and CPU")
+    lit = int((cL.sum(-1) > 0).sum())
+    mean_rel, within = agree(gL, cL, f"(a) {MLT_W} chains' L ({lit} carry light; {g_sec:.2f} s "
+                                     f"on the card, {c_sec:.2f} s on the CPU)")
+    log(f"  (a) every one of {k1['launches']} K1 launches bit-equal to the plain twin; kernel "
+        f"{k1['ms']:.3f} ms, plain {k1['plain_ms']:.3f} ms, live share {k1['live_share']:.4f}, "
+        f"{k1['rays']} rays, bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})")
+    for k in ("live_share_per_launch", "rays_per_launch"):
+        k1.pop(k)
+    out["paths_small"] = {"seconds": g_sec, "cpu_seconds": c_sec, "lit_chains": lit,
+                          "cpu_mean_rel": mean_rel, "cpu_within_1e-3": within, "k1": k1}
+
+    scene, film, cam = scene_parts(bench_scene_text(BENCHMLT_RES), "mlt_paths_bench", tmp,
+                                   "cuda")
+    rec2 = SweepRecorder(bvh_cuda)
+    with Patched((bvh_cuda, "wide_sweep", rec2)):
+        (_, _, L), sec = host_s(lambda: bidir.path_l_psamples(
+            scene, cam, film, torch.as_tensor(u, device="cuda"), 5))
+    k2 = rec2.summary()
+    if k2["waves"] <= 0 or not bool(torch.isfinite(L).all()):
+        raise RuntimeError("[26a'] the bench paths launched no K2 or are not finite")
+    log(f"  (a') bench geometry: {sec:.2f} s with every K2 wave checked; {k2['waves']} waves, "
+        f"{k2['pairs']} pairs: prim identical, t bits differ on {k2['t_bits_differ']}; kernel "
+        f"{k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, bound {k2['bound_ms']:.3f} ms "
+        f"({k2['bound_by']}); {int((L.sum(-1) > 0).sum())} chains carry light")
+    out["paths_bench"] = {"seconds": sec, "k2": k2}
+
+    tile = ("--tile-samples", str(MLT_RES * MLT_RES * 8))
+    ref, ref_sec = render(small_scene_text(MLT_RES, 8), "mlt_sampler", tmp, extra=tile)
+    intersect_cuda.launches = 0
+    mlt, mlt_sec = render(with_line(small_scene_text(MLT_RES, 8),
+                                    'Renderer "metropolis" "integer samplesperpixel" [16] '
+                                    '"bool dodirectseparately" ["true"]'), "mlt_small", tmp)
+    k1_mlt = intersect_cuda.launches
+    st = dict(metropolis.last_stats)
+    level = float(ref.mean())
+    n = MLT_RES // 4
+    rb = ref.reshape(4, n, 4, n, -1).mean(axis=(1, 3, 4))
+    mb = mlt.reshape(4, n, 4, n, -1).mean(axis=(1, 3, 4))
+    block_rel = float((np.abs(mb - rb) / np.maximum(rb, 0.1 * level)).mean())
+    mean_rel = abs(float(mlt.mean()) - level) / level
+    log(f"  (b) {MLT_RES}x{MLT_RES}: sampler {ref_sec:.2f} s (mean {level:.5f}), metropolis "
+        f"{mlt_sec:.2f} s (mean {mlt.mean():.5f}; {st['steps']} steps, {st['bootstrap_paths']} "
+        f"bootstrap paths, b {st['b']:.5g}, accepted {st['accepted']}, K1 launches {k1_mlt}): "
+        f"mean rel diff {mean_rel:.4f} (limit 0.15), 4x4 block rel {block_rel:.4f} (limit 0.35)")
+    if mean_rel >= 0.15 or block_rel >= 0.35 or k1_mlt <= 0:
+        raise RuntimeError("[26b] metropolis disagrees with the sampler renderer")
+    out["small"] = {"sampler_seconds": ref_sec, "seconds": mlt_sec, "mean_rel": mean_rel,
+                    "block_rel": block_rel, "k1_launches": k1_mlt, "stats": st}
+
+    k2t = LaunchTimer(bvh_cuda.wide_sweep_cuda, work=k2_work)
+    bvh_cuda.launches = 0
+    text = with_line(bench_scene_text(BENCHMLT_RES),
+                     'Renderer "metropolis" "integer samplesperpixel" [4]')
+    with Patched((bvh_cuda, "wide_sweep", k2t)):
+        img, sec = render(text, "benchmlt", tmp)
+    st = dict(metropolis.last_stats)
+    spans = k2_spans(k2t)
+    mut = st["steps"] * st["chains"]
+    lit = float((img.max(-1) > 0).mean())
+    log(f"  (c) benchmlt {BENCHMLT_RES}x{BENCHMLT_RES}: {sec:.2f} s end to end with K2 events; "
+        f"{st['bootstrap_paths']} bootstrap paths, {st['steps']} steps x {st['chains']} chains = "
+        f"{mut} mutations ({mut / sec:.0f} mutations/s), accepted {st['accepted']} "
+        f"({st['accepted'] / max(mut, 1):.3f}); b {st['b']:.5g}, splat Y {st['splat_y']:.6g} x "
+        f"scale {st['splat_scale']:.5g}; K2 {spans['k2_launches']} launches, {spans['k2_ms']:.1f} "
+        f"ms ({spans['k2_ms'] / 1e3 / sec:.3f} of the render), bound {spans['k2_bound_ms']:.3f} "
+        f"ms; image mean {img.mean():.5f}, {lit:.3f} of pixels non-zero")
+    if spans["k2_launches"] <= 0 or st["splat_y"] <= 0 or lit < 0.5:
+        raise RuntimeError("[26c] benchmlt launched no K2 or carries no energy")
+    out["benchmlt"] = {"res": BENCHMLT_RES, "seconds": sec, "mutations": mut,
+                       "mutations_per_s": mut / sec, "image_mean": float(img.mean()),
+                       "nonzero_pixels": lit, "stats": st, "spans": spans}
+    return out
+
+
+class WalkTimer:
+    """Stands in for a walk (t_pass_grid, t_pass_kdtree): CUDA events
+    around each call on the card (host seconds on the CPU), read after
+    the render."""
+
+    def __init__(self, fn):
+        self.fn, self.events, self.host = fn, [], 0.0
+
+    def __call__(self, grid, geom, ray, **kw):
+        import torch
+
+        if ray.o.is_cuda:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.fn(grid, geom, ray, **kw)
+            b.record()
+            self.events.append((a, b))
+            return out
+        t0 = time.perf_counter()
+        out = self.fn(grid, geom, ray, **kw)
+        self.host += time.perf_counter() - t0
+        return out
+
+    def seconds(self):
+        import torch
+
+        if self.events:
+            torch.cuda.synchronize()
+        return self.host + sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+
+def timed_accel_render(mod, text, name, tmp, extra=()):
+    """A render under mod's accelerator (accel.grid or accel.kdtree)
+    with its host build and its walks timed -> (image, dict)."""
+    build = "build_grid_arrays" if mod.__name__.endswith("grid") else "build_kdtree_arrays"
+    walk = "t_pass_grid" if build == "build_grid_arrays" else "t_pass_kdtree"
+    bt, wt = BuildTimer(getattr(mod, build)), WalkTimer(getattr(mod, walk))
+    mod.walk_stats.update(traversals=0, iterations=0)
+    with Patched((mod, build, bt), (mod, walk, wt)):
+        img, sec = render(text, name, tmp, extra)
+    st = dict(mod.walk_stats)
+    if st["traversals"] <= 0:
+        raise RuntimeError(f"[27] {name}: no walk")
+    return img, {"seconds": sec, "build_seconds": sum(bt.seconds), "walk_seconds": wt.seconds(),
+                 "walks": st["traversals"], "iterations": st["iterations"]}
+
+
+def accel_summary(r):
+    n = max(r["walks"], 1)
+    return (f"{r['seconds']:.2f} s: build {r['build_seconds']:.2f} s, {r['walks']} walks "
+            f"{r['walk_seconds']:.2f} s ({r['iterations'] / n:.1f} iterations, "
+            f"{r['walk_seconds'] / max(r['iterations'], 1) * 1e3:.2f} ms an iteration)")
+
+
+def phase_accels(tmp):
+    """[27] the grid and the kd-tree: the small scene under each, on the
+    card against the CPU and against the card's default-accelerator
+    image (agree() both), no kernel launched (the walks are plain
+    torch, as in the JAX package); the bench geometry under the grid and
+    benchkd (a KD_SPHERE^2 sphere) under the kd-tree on the card, with
+    directlighting; every render with its host build and walks timed
+    apart -> dict."""
+    from pbrt_tpu_torch.accel import grid, kdtree
+    from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
+
+    out = {}
+    tile = ("--tile-samples", str(SLICE_RES * SLICE_RES * 4))
+    base, base_sec = render(small_scene_text(SLICE_RES, 4), "accel_default", tmp, extra=tile)
+    for name, mod in (("grid", grid), ("kdtree", kdtree)):
+        text = with_line(small_scene_text(SLICE_RES, 4), f'Accelerator "{name}"')
+        intersect_cuda.launches = 0
+        bvh_cuda.launches = 0
+        gpu, rg = timed_accel_render(mod, text, f"accel_{name}_gpu", tmp, tile)
+        if intersect_cuda.launches or bvh_cuda.launches:
+            raise RuntimeError(f"[27] {name}: a kernel launched")
+        cpu, rc = timed_accel_render(mod, text, f"accel_{name}_cpu", tmp,
+                                     (*tile, "--device", "cpu"))
+        log(f"  small under {name}: card {accel_summary(rg)}; CPU {accel_summary(rc)}")
+        r = {"card": rg, "cpu": rc}
+        r["cpu_mean_rel"], r["cpu_within_1e-3"] = agree(gpu, cpu, f"small under {name}")
+        r["default_mean_rel"], r["default_within_1e-3"] = agree(
+            gpu, base, f"small under {name} vs the default accelerator ({base_sec:.2f} s)")
+        out[f"small_{name}"] = r
+    for name, mod, res, text in (
+            ("bench_grid", grid, GRID_BENCH_RES, bench_accel_text(GRID_BENCH_RES, "grid")),
+            ("benchkd", kdtree, KD_RES, bench_accel_text(KD_RES, "kdtree", KD_SPHERE))):
+        img, r = timed_accel_render(mod, text, name, tmp)
+        log(f"  {name} {res}x{res}: {accel_summary(r)}; image mean {img.mean():.5f}")
+        out[name] = {"res": res, "image_mean": float(img.mean()), **r}
+    return out
+
+
+def largest_prim_leaf(tree, geom):
+    """The leaf of a binary tree holding the primitive of the largest box."""
+    from pbrt_tpu_torch.accel.bvh import prim_bounds
+
+    lo, hi = prim_bounds(geom)
+    big = int(np.argmax(np.prod(np.maximum(hi - lo, 1e-3), -1)))
+    meta = tree.node_meta.cpu().numpy()
+    pos = int(np.nonzero(tree.prim_ids.cpu().numpy() == big)[0][0])
+    return int(np.nonzero((meta[:, 1] > 0) & (meta[:, 0] <= pos)
+                          & (pos < meta[:, 0] + meta[:, 1]))[0][0])
+
+
+def phase_aggregatetest(tmp):
+    """[28] aggregatetest on [19b]'s motion bench geometry (a binary tree
+    is built): niters 100000 through the CLI on the card, 0 mismatches;
+    then run_aggregate_test with the box of the leaf holding the largest
+    primitive shrunk to its centre, 1,024 rays on the card and on the
+    CPU: the same non-zero count -> dict."""
+    import torch
+
+    from pbrt_tpu_torch.renderers import aggregatetest
+
+    text = motion_bench_text(64)
+    sec = run_cli(with_line(text, 'Renderer "aggregatetest" "integer niters" [100000]'),
+                  "aggtest", tmp)
+    st = dict(aggregatetest.last_stats)
+    log(f"  {st['rays']} rays in {st['batches']} batches, {sec:.2f} s end to end: "
+        f"{st['mismatches']} mismatches")
+    if st["rays"] < 100000 or st["mismatches"] != 0:
+        raise RuntimeError("[28] aggregatetest found mismatches or traced no rays")
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        scene, ro = compile_text(text, f"aggtest_{dev}", tmp, dev)
+        tree = scene.accel.bvh
+        leaf = largest_prim_leaf(tree, scene.geom)
+        lo, hi = tree.node_lo.clone(), tree.node_hi.clone()
+        lo[leaf] = hi[leaf] = 0.5 * (tree.node_lo[leaf] + tree.node_hi[leaf])
+        scene.accel = scene.accel._replace(bvh=tree._replace(node_lo=lo, node_hi=hi))
+        t0 = time.perf_counter()
+        counts[dev] = (aggregatetest.run_aggregate_test(scene, ro, n_iters=1024, batch=1024),
+                       time.perf_counter() - t0, leaf)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+    log(f"  leaf {counts['cuda'][2]} shrunk: {counts['cuda'][0]} mismatches on the card "
+        f"({counts['cuda'][1]:.2f} s), {counts['cpu'][0]} on the CPU ({counts['cpu'][1]:.2f} s)")
+    if counts["cuda"][0] != counts["cpu"][0] or counts["cuda"][0] <= 0:
+        raise RuntimeError("[28] the shrunk leaf's mismatches differ or are none")
+    return {"seconds": sec, "stats": st, "shrunk_leaf_mismatches": counts["cuda"][0],
+            "shrunk_card_seconds": counts["cuda"][1], "shrunk_cpu_seconds": counts["cpu"][1]}
+
+
+def phase_tools(tmp):
+    """[29] the tools: bsdftest 16384 on the card exits 0 and its 42
+    estimates agree with the CPU's within 1e-5; exrdiff on EXRs the card
+    wrote (the same image: 0; another sample count: 1, as the JAX tool
+    exits); obj2pbrt's output (a UV sphere and a floor) renders on the
+    card through K1 -> dict."""
+    import torch
+
+    from pbrt_tpu_torch.ops import intersect_cuda
+    from pbrt_tpu_torch.tools import __main__ as tools
+    from pbrt_tpu_torch.tools import bsdftest
+
+    t0 = time.perf_counter()
+    if tools.main(["bsdftest", "16384"]) != 0:
+        raise RuntimeError("[29] bsdftest failed on the card")
+    bsdf_sec = time.perf_counter() - t0
+    gpu = bsdftest.bsdf_estimates(16384, torch.device("cuda"))
+    cpu = bsdftest.bsdf_estimates(16384, torch.device("cpu"))
+    diff = max(abs(a - b) for rg, rc in zip(gpu, cpu) for a, b in zip(rg[3:], rc[3:])
+               if a is not None)
+    log(f"  bsdftest 16384 on the card: exit 0 in {bsdf_sec:.2f} s; card vs CPU estimates max "
+        f"difference {diff:.3g} (limit 1e-5)")
+    if diff > 1e-5:
+        raise RuntimeError("[29] bsdftest's card and CPU estimates differ")
+    exrs = [os.path.join(tmp, f"tools_{k}.exr") for k in ("a", "b")]
+    for path, spp in zip(exrs, (4, 8)):
+        run_cli(small_scene_text(SLICE_RES, spp), os.path.basename(path)[:-4], tmp,
+                ("--outfile", path))
+    rc_same = tools.main(["exrdiff", exrs[0], exrs[0]])
+    rc_diff = tools.main(["exrdiff", exrs[0], exrs[1]])
+    log(f"  exrdiff: same image {rc_same}, 4 vs 8 spp {rc_diff} (expected 0 and 1)")
+    if (rc_same, rc_diff) != (0, 1):
+        raise RuntimeError("[29] exrdiff's exit codes")
+    P, idx = uv_sphere(30, 30, 0.5, (0.0, 0.5, 0.0))
+    obj = os.path.join(tmp, "tools_mesh.obj")
+    with open(obj, "w") as f:
+        f.write("".join(f"v {x:.7g} {y:.7g} {z:.7g}\n" for x, y, z in P))
+        f.write("".join(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in idx.reshape(-1, 3)))
+        f.write("".join(f"v {x:.7g} {y:.7g} {z:.7g}\n" for x, y, z in FLOOR))
+        f.write(f"f {len(P) + 1} {len(P) + 3} {len(P) + 2}\nf {len(P) + 1} {len(P) + 4} "
+                f"{len(P) + 3}\n")
+    conv = os.path.join(tmp, "tools_mesh.pbrt")
+    if tools.main(["obj2pbrt", obj, conv]) != 0:
+        raise RuntimeError("[29] obj2pbrt failed")
+    text = (f'Film "image" "integer xresolution" [{SLICE_RES}] "integer yresolution" '
+            f'[{SLICE_RES}]\nSampler "lowdiscrepancy" "integer pixelsamples" [4]\n'
+            'LookAt 0 1.5 -4  0 0.4 0  0 1 0\nCamera "perspective" "float fov" [45]\n'
+            'SurfaceIntegrator "path" "integer maxdepth" [3]\nWorldBegin\n'
+            'LightSource "point" "point from" [2 4 -3] "rgb I" [20 20 20]\n'
+            f'Material "matte" "rgb Kd" [.5 .4 .3]\nInclude "{conv}"\nWorldEnd\n')
+    intersect_cuda.launches = 0
+    img, sec = render(text, "tools_obj", tmp)
+    k1 = intersect_cuda.launches
+    log(f"  obj2pbrt: {len(idx) // 3 + 2} triangles converted, rendered on the card in "
+        f"{sec:.2f} s (K1 launches {k1}, image mean {img.mean():.5f})")
+    if k1 <= 0:
+        raise RuntimeError("[29] the converted mesh's render launched no K1")
+    return {"bsdftest_seconds": bsdf_sec, "bsdf_max_diff": diff, "exrdiff": [rc_same, rc_diff],
+            "obj_seconds": sec, "k1_launches": k1}
+
+
+def run_mlt_phases(tmp):
+    """[26]-[29], metropolis, the grid and kd-tree, aggregatetest and the
+    tools -> dict."""
+    out = {}
+    for key, title, fn in (
+            ("mlt", "[26] metropolis: bidirectional paths (K1 small scene, K2 bench geometry), "
+                    "MLT vs sampler, benchmlt", phase_mlt),
+            ("accels", f"[27] grid and kd-tree: the small scene card vs CPU vs default; the bench "
+                       f"geometry under the grid, benchkd ({2 * KD_SPHERE * KD_SPHERE + 2} "
+                       f"triangles) under the kd-tree", phase_accels),
+            ("aggtest", "[28] aggregatetest on the motion bench geometry (binary tree)",
+             phase_aggregatetest),
+            ("tools", "[29] tools: bsdftest, exrdiff, obj2pbrt", phase_tools)):
+        log(title)
+        t0 = time.perf_counter()
+        out[key] = fn(tmp)
+        log(f"  {title.split()[0]} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def compile_text(scene_text, out_name, tmp, device):
     """Parse a scene and compile it on `device` without rendering ->
     (CompiledScene, RenderOptions)."""
@@ -2425,14 +2832,15 @@ def main():
         textured = run_texture_phases(tmp)
         sliced = run_slice_phases(tmp)
         longtail = run_longtail_phases(tmp)
+        mlt = run_mlt_phases(tmp)
 
     # K1: every launch of the small render, the goldens, rainbowc, the
-    # small textured scene, [17], [18], [24] and [25] (set3: 65,536 rays x
-    # 4,096 triangles); K2: the three 1024^2 ray sets in the render's
-    # 65,536-ray traversals (sums over every wave; by_set has each set at
-    # both shapes), launches of the bench, benchvol, benchphoton,
-    # benchtex, benchenv, benchlens and benchirr renders. No single
-    # PyTorch call computes either.
+    # small textured scene, [17], [18], [24], [25], [26a], [26b] and [29]
+    # (set3: 65,536 rays x 4,096 triangles); K2: the three 1024^2 ray
+    # sets in the render's 65,536-ray traversals (sums over every wave;
+    # by_set has each set at both shapes), launches of the bench,
+    # benchvol, benchphoton, benchtex, benchenv, benchlens, benchirr and
+    # benchmlt renders. No single PyTorch call computes either.
     k1["goldens"] = goldens
     k1["rainbowc"] = photon["rainbowc"]
     k1["smalltex"] = textured["smalltex"]
@@ -2442,6 +2850,10 @@ def main():
     k1["autofocus"] = longtail["autofocus"]
     lt_k1 = (sum(r["k1_launches"] for k, r in longtail["longtail"].items()
                  if not k.startswith("files_")) + longtail["autofocus"]["k1_launches"])
+    k1["mlt"] = {"paths_small": mlt["mlt"]["paths_small"], "small": mlt["mlt"]["small"],
+                 "obj": mlt["tools"]}
+    lt_k1 += (mlt["mlt"]["paths_small"]["k1"]["launches"] + mlt["mlt"]["small"]["k1_launches"]
+              + mlt["tools"]["k1_launches"])
     k1["launches"] += (sum(g["k1_launches"] for g in goldens.values())
                        + photon["rainbowc"]["k1_launches"] + textured["smalltex"]["k1_launches"]
                        + sliced["smalllights"]["k1_launches"]
@@ -2452,14 +2864,19 @@ def main():
     k2["benchenv"] = sliced["benchenv"]
     k2["benchlens"] = longtail["benchlens"]
     k2["benchirr"] = longtail["benchirr"]
+    k2["benchmlt"] = mlt["mlt"]["benchmlt"]
+    k2["mlt_paths_bench"] = mlt["mlt"]["paths_bench"]
     k2["launches"] += (benchvol["k2_launches"] + photon["benchphoton"]["k2_launches"]
                        + textured["benchtex"]["k2_launches"] + sliced["benchenv"]["k2_launches"]
                        + longtail["benchlens"]["k2_launches"]
-                       + longtail["benchirr"]["k2_launches"])
+                       + longtail["benchirr"]["k2_launches"]
+                       + mlt["mlt"]["benchmlt"]["spans"]["k2_launches"])
     log(f"  photon legs: {json.dumps(photon['photon_legs'])}")
     log(f"  motion: {json.dumps(sliced['motion'], default=float)}; checkpoint: "
         f"{json.dumps(sliced['checkpoint'])}")
     log(f"  goldens irr / dprt: {json.dumps(longtail['goldens'], default=float)}")
+    log(f"  grid / kd-tree: {json.dumps(mlt['accels'], default=float)}; aggregatetest: "
+        f"{json.dumps(mlt['aggtest'], default=float)}")
     log(f"  all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [
         {"name": "k1_sweep_kernel", "route": "cuda",

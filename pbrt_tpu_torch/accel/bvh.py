@@ -237,6 +237,15 @@ def _leaf_prims_t(geom: SceneGeom, prim_ids, o, d, tmin, tmax, time):
     return tb, vb
 
 
+def min_first(x):
+    """(min, index of its first occurrence) along the last axis, on
+    every device (the JAX package's argmin), for the grid and kd-tree
+    walks."""
+    m = torch.amin(x, -1)
+    cols = torch.arange(x.shape[-1], device=x.device)
+    return m, torch.amin(torch.where(x == m[..., None], cols, x.shape[-1]), -1)
+
+
 def t_pass_bvh(bvh: BVH, geom: SceneGeom, ray, any_hit: bool = False):
     """Per-ray short-stack walk of the binary tree, all rays in lockstep
     (reference bvh.cpp:585-687 Intersect). Returns (t [R], prim [R]).

@@ -197,6 +197,16 @@ def t_pass_brute(geom: SceneGeom, ray: Ray, block: int = 512):
     return torch.where(prim_best >= 0, t_best, big), prim_best
 
 
+def t_pass_all(geom: SceneGeom, ray: Ray):
+    """Every primitive by exhaustion: the triangles' block scan, then
+    the quadric fold (what the JAX package's t_pass_brute computes).
+    Returns (t [R], prim [R] int64)."""
+    t, prim = t_pass_brute(geom, ray)
+    if geom.n_quads > 0:
+        t, prim = quad_t_pass(geom, ray, t, prim)
+    return t, prim
+
+
 # ---------------------------------------------------------------------------
 # Quadrics: candidate t (object space, both roots, range-clipped)
 

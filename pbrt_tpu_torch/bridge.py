@@ -6,10 +6,11 @@ compiled scene flattens to the same keys (`to_arrays`). The tests use
 it to feed both packages identical geometry (triangles and quadrics,
 with the motion fields of an animated scene), lights (with the image
 side structures of the goniometric, projection and infinite lights),
-light CDF, wide and binary BVHs and volume regions, and to compare
-their compilers array for array. Keys are "<part>.<field>" with the
+light CDF, wide and binary BVHs, uniform grids, kd-trees and volume
+regions, and to compare their compilers array for array. Keys are "<part>.<field>" with the
 field names of pbrt_tpu's SceneGeom (with its packs), LightsT,
-Distribution1D, WideBVH, BVH and VolumeT; the EnvMaps are
+Distribution1D, WideBVH, BVH, Grid ("grid."), KdTree ("kd.") and
+VolumeT; the EnvMaps are
 "env<i>.<field>" (light_idx, kind, image, and the cond/marg tables of
 the Distribution2D) with their count under "envs.count".
 
@@ -36,6 +37,8 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.accel.bvh import BVH
+from pbrt_tpu_torch.accel.grid import Grid
+from pbrt_tpu_torch.accel.kdtree import KdTree
 from pbrt_tpu_torch.accel.intersect import Hit, SceneGeom
 from pbrt_tpu_torch.accel.wide_bvh import WideBVH
 from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
@@ -79,14 +82,19 @@ VOLUME_FIELDS = {
     "g": torch.float32, "params": torch.float32, "grid": torch.float32,
     "grid_dims": torch.int32,
 }
+GRID_FIELDS = {"lo": torch.float32, "hi": torch.float32, "n_vox": torch.int64,
+               "width": torch.float32, "voxel_off": torch.int64, "voxel_prims": torch.int64}
+KD_FIELDS = {"lo": torch.float32, "hi": torch.float32, "node_split": torch.float32,
+             "node_meta": torch.int64, "prim_ids": torch.int64}
 PARTS = {"geom": (SceneGeom, GEOM_FIELDS), "lights": (LightsT, LIGHT_FIELDS),
          "light_dist": (Distribution1D, DIST_FIELDS), "wide": (WideBVH, WIDE_FIELDS),
-         "volume": (VolumeT, VOLUME_FIELDS), "bvh": (BVH, BVH_FIELDS)}
+         "volume": (VolumeT, VOLUME_FIELDS), "bvh": (BVH, BVH_FIELDS),
+         "grid": (Grid, GRID_FIELDS), "kd": (KdTree, KD_FIELDS)}
 
 
 def from_arrays(arrays: dict, part: str, device):
-    """Build one part ("geom", "lights", "light_dist", "wide", "volume"
-    or "bvh") from arrays["<part>.<field>"] on `device`; None if the
+    """Build one part ("geom", "lights", "light_dist", "wide", "volume",
+    "bvh", "grid" or "kd") from arrays["<part>.<field>"] on `device`; None if the
     part is absent. A geometry without quadric keys gets none, and one
     with motion keys gets the motion fields and shutter times; lights
     get the EnvMaps of "env<i>." keys."""
@@ -170,13 +178,16 @@ def to_arrays(part: str, obj) -> dict:
 
 
 def scene_to_arrays(scene) -> dict:
-    """All parts of a compiled scene (pbrt_tpu_torch.scene.compile)."""
+    """All parts of a compiled scene (pbrt_tpu_torch.scene.compile),
+    with the grid or kd-tree of a GridScene or KdScene."""
     out = {}
     out.update(to_arrays("geom", scene.geom))
     out.update(to_arrays("lights", scene.lights))
     out.update(to_arrays("light_dist", scene.light_dist))
     out.update(to_arrays("wide", scene.accel.wide))
     out.update(to_arrays("bvh", scene.accel.bvh))
+    out.update(to_arrays("grid", getattr(scene.accel, "grid", None)))
+    out.update(to_arrays("kd", getattr(scene.accel, "kd", None)))
     out.update(to_arrays("volume", scene.volume))
     return out
 

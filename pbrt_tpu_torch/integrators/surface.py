@@ -89,9 +89,12 @@ def _occluded(scene, p, wi, dist, valid, time=None):
 
 
 def estimate_direct(scene, lobes: Lobes, frame: Frame, p, wo, u_light, u1, u2,
-                    active, transmittance_fn=None, time=None):
+                    active, transmittance_fn=None, time=None, mis: bool = True):
     """One-light direct illumination, light-sampling half of the MIS
-    pair (the BSDF half is the next vertex's emission). Returns [N, S]."""
+    pair (the BSDF half is the next vertex's emission). Returns [N, S].
+    Callers that add no BSDF half (the bidirectional MLT paths,
+    integrators/bidir.py) pass mis=False: the light-sampling estimator
+    alone, unweighted."""
     if scene.lights is None:
         return torch.zeros(p.shape[:-1] + (S,), device=p.device)
     light_idx, pick_pmf = scene.light_dist.sample_discrete(u_light)
@@ -103,9 +106,12 @@ def estimate_direct(scene, lobes: Lobes, frame: Frame, p, wo, u_light, u1, u2,
     occluded = _occluded(scene, p, ls.wi, ls.dist, usable, time=time)
     usable = usable & ~occluded
     # MIS weight (light strategy): delta lights get weight 1
-    bpdf = bsdf_pdf(lobes, frame, wo, ls.wi)
-    w = torch.where(ls.is_delta, torch.ones((), device=p.device),
-                    power_heuristic(1.0, ls.pdf * pick_pmf, 1.0, bpdf))
+    if mis:
+        bpdf = bsdf_pdf(lobes, frame, wo, ls.wi)
+        w = torch.where(ls.is_delta, torch.ones((), device=p.device),
+                        power_heuristic(1.0, ls.pdf * pick_pmf, 1.0, bpdf))
+    else:
+        w = torch.ones_like(cos_i)
     contrib = f * ls.L * (cos_i * w / torch.clamp(ls.pdf * pick_pmf, min=1e-12))[..., None]
     if transmittance_fn is not None:
         contrib = contrib * transmittance_fn(p, ls.wi, ls.dist)

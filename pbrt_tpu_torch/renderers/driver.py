@@ -12,7 +12,9 @@ them as an argument. The adaptive sampler renders a tile in two passes
 (the JAX package's fields and compatibility check). The probes counters
 tick once per tile. A realistic camera with AF zones focuses before the
 first tile. The surfacepoints and createprobes renderers write their
-point and probe files instead of an image.
+point and probe files instead of an image; the metropolis renderer
+(renderers/metropolis.py) returns its image, and aggregatetest
+(renderers/aggregatetest.py) the count of its mismatches.
 """
 from __future__ import annotations
 
@@ -75,12 +77,20 @@ def render_scene(ro: RenderOptions, options: Optional[dict] = None):
     device = torch.device(options.get("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise PbrtError("no CUDA device available; pass device='cpu' to render on the CPU")
-    scene = compile_scene(ro, device)  # raises on what is not yet ported
+    scene = compile_scene(ro, device)
     filter_spec = film_mod.make_filter(ro.filter_name, ro.filter_params)
     film = film_mod.make_film(ro.film_name, ro.film_params, filter_spec, options)
     camera = make_camera(ro.camera_name, ro.camera_params,
                          ro.camera_to_world or Transform(), film.xres, film.yres)
     sampler = make_sampler(ro.sampler_name, ro.sampler_params, options)
+    if ro.renderer_name == "metropolis":
+        from pbrt_tpu_torch.renderers.metropolis import render_metropolis
+
+        return render_metropolis(scene, ro, film, camera, options)
+    if ro.renderer_name == "aggregatetest":
+        from pbrt_tpu_torch.renderers.aggregatetest import run_aggregate_test
+
+        return run_aggregate_test(scene, ro, options)
     if ro.renderer_name == "surfacepoints":
         from pbrt_tpu_torch.renderers.surfacepoints import render_surface_points
 

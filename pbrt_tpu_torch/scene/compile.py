@@ -7,10 +7,9 @@ projection, distant, infinite with its importance table, and diffuse
 area lights on meshes and quadrics), volume regions, every material
 kind with any texture, measured BRDF tables, and bump mapping.
 The tessellated shapes (heightfield, loopsubdiv, nurbs) arrive as
-triangle meshes. What else a scene may name that the JAX package knows
-(the metropolis and aggregatetest renderers, the grid and kdtree
-accelerators) fails here with "not yet ported: <name>" — the compiler
-never substitutes something else.
+triangle meshes. The accelerator is the scene's: "bvh" (the routing of
+accel/bvh.py make_accel), "none" (no tree), "grid" or "kdtree"; an
+unknown name warns and takes "bvh", as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,7 +20,7 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.core import spectrum as spec
-from pbrt_tpu_torch.core.error import PbrtError, info, warning
+from pbrt_tpu_torch.core.error import info, warning
 from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
 from pbrt_tpu_torch.core.transform import Transform, xform_point_affine
 from pbrt_tpu_torch.core.geometry import Ray, cross, normalize
@@ -47,10 +46,6 @@ from pbrt_tpu_torch.volumes.registry import VolumeT, build_volumes
 S = spec.N_BINS
 
 
-def not_ported(what: str):
-    raise PbrtError(f"not yet ported: {what}")
-
-
 @dataclass
 class CompiledScene:
     """Host container of the device tensors the renderer reads."""
@@ -62,7 +57,7 @@ class CompiledScene:
     material_dispersive: torch.Tensor      # [M] bool
     world_lo: np.ndarray
     world_hi: np.ndarray
-    accel: object = None                   # accel.bvh.BvhScene
+    accel: object = None                   # BvhScene, GridScene or KdScene
     volume: Optional[VolumeT] = None
     meas_tables: object = None             # [T,TH,TD,PD,3] measured BRDFs
     meas_index: dict = field(default_factory=dict)  # id(material) -> table row
@@ -139,18 +134,8 @@ def _material_index(mat: Optional[MaterialRecord], materials: List[MaterialRecor
     return index[key]
 
 
-def _check_options(ro: RenderOptions):
-    """Names the JAX package renders and this package does not yet;
-    names that neither knows warn and fall back in the render driver."""
-    if ro.renderer_name in ("metropolis", "aggregatetest"):
-        not_ported(f'renderer "{ro.renderer_name}"')
-    if ro.accelerator_name in ("grid", "kdtree"):
-        not_ported(f'accelerator "{ro.accelerator_name}"')
-
-
 def compile_scene(ro: RenderOptions, device) -> CompiledScene:
     """Lower RenderOptions to device tensors (reference api.cpp:1197)."""
-    _check_options(ro)
     materials: List[MaterialRecord] = []
     mat_index: Dict[int, int] = {}
 
@@ -369,14 +354,23 @@ def compile_scene(ro: RenderOptions, device) -> CompiledScene:
          f"{0 if lights is None else int(lights.kind.shape[0])} lights, "
          f"{len(materials)} materials")
 
-    from pbrt_tpu_torch.accel.bvh import make_accel
-
     accel_name = ro.accelerator_name
-    if accel_name not in ("bvh", "none"):
+    split = ro.accelerator_params.find_one_string("splitmethod", "sah")
+    if accel_name not in ("bvh", "grid", "kdtree", "none"):
         warning(f'Accelerator "{accel_name}" unknown; using "bvh".')
         accel_name = "bvh"
-    split = ro.accelerator_params.find_one_string("splitmethod", "sah")
-    accel = make_accel(geom, split, force="flat" if accel_name == "none" else "")
+    if accel_name == "grid":
+        from pbrt_tpu_torch.accel.grid import make_grid_accel
+
+        accel = make_grid_accel(geom)
+    elif accel_name == "kdtree":
+        from pbrt_tpu_torch.accel.kdtree import make_kdtree_accel
+
+        accel = make_kdtree_accel(geom, ro.accelerator_params)
+    else:
+        from pbrt_tpu_torch.accel.bvh import make_accel
+
+        accel = make_accel(geom, split, force="flat" if accel_name == "none" else "")
     # stack the measured half-angle BRDF tables (materials/measured.py);
     # each measured material gets a row of the [T,TH,TD,PD,3] stack
     merl = [m for m in materials if m.kind == "measured" and "merl" in m.spectra]

@@ -300,8 +300,10 @@ def test_port_builds_with_its_own_builder_source():
     lights, samplers (reading its own best-candidate table), cameras,
     transforms, probes, compiler and render driver (and the realistic
     camera, the extra integrators with the SH module, the surfacepoints
-    and createprobes renderers, and the loopsubdiv and nurbs shapes),
-    without importing jax or pbrt_tpu and without opening or running anything under
+    and createprobes renderers, and the loopsubdiv and nurbs shapes; the
+    threefry streams, the bidirectional paths, the metropolis and
+    aggregatetest renderers, the grid and kd-tree accelerators and every
+    tool module), without importing jax or pbrt_tpu and without opening or running anything under
     pbrt_tpu/; its builder source is byte-identical to the
     reference's."""
     import os
@@ -337,6 +339,11 @@ from pbrt_tpu_torch.cameras import realistic
 from pbrt_tpu_torch.integrators import extra
 from pbrt_tpu_torch.core import sh
 from pbrt_tpu_torch.shapes import loopsubdiv, nurbs
+from pbrt_tpu_torch.core import threefry
+from pbrt_tpu_torch.integrators import bidir
+from pbrt_tpu_torch.renderers import metropolis, aggregatetest
+from pbrt_tpu_torch.accel import grid, kdtree
+from pbrt_tpu_torch.tools import __main__ as tools_main, bsdftest, converters, exrtools
 assert samplers._bc_buckets(4)[1].shape[1:] == (4, 2)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pbrt_tpu")]
 assert not bad, bad
