@@ -41,7 +41,14 @@ accelerators ([27]: the small scene card vs CPU vs the default
 accelerator; the bench geometry under the grid and benchkd under the
 kd-tree, timed with their host builds), aggregatetest on the motion
 bench geometry ([28]) and the tools ([29]: bsdftest card vs CPU,
-exrdiff, obj2pbrt); then it prints one JSON line per the contract below. Every phase raises on
+exrdiff, obj2pbrt); then gradients ([30]: test_grad.py's four
+estimators card vs CPU vs central differences; d mean / d albedo of the
+small scene (K1, every launch checked) and of the bench geometry at
+1024^2, the grad leg of bench.py, K2) and process groups ([31]:
+tests/test_distributed.py's scene through --distributed at world size 1
+over NCCL, bit for bit, and over two gloo ranks sharing the card; the
+scene with the bench geometry at world size 1, K2 counted); then it
+prints one JSON line per the contract below. Every phase raises on
 failure; the script then exits
 non-zero and prints no result. It needs no network and no JAX.
 
@@ -2615,6 +2622,521 @@ def phase_benchphoton(tmp, device):
             "k1_launches": k1_launches, "first_batch_k2": m, "stats": st, "spans": out}
 
 
+# ---------------------------------------------------------------------------
+# [30]: gradients (pbrt_tpu_torch/diff.py) on the card. The estimators are
+# tests/test_grad.py's four, in the port; tests/test_torch_grad.py holds
+# them against the JAX package's jax.grad on the CPU.
+
+# tests/test_grad.py's frozen shoot, its photon-splat query points and, per
+# estimator, (scene, central-difference step h, rtol)
+GRAD_FREEZE = dict(n_paths=2048, vol_quota=1, seed=3, max_depth=5, n_used=20, max_dist=0.5,
+                   vol_n_used=20, vol_max_dist=0.7)
+GRAD_Q_PTS = np.array([[0.0, 0.6, 0.0], [0.2, 0.2, 0.2], [-0.3, 1.0, 0.1], [0.0, 1.4, -0.2]],
+                      np.float32)
+GRAD_FD = {"march": ("plain", 1e-2, 2e-2), "path": ("plain", 1e-2, 2e-2),
+           "splat": ("photon", 1e-2, 1e-3), "photonvolume": ("photon", 5e-3, 5e-2)}
+GRAD_RTOL, GRAD_LOSS_RTOL = 1e-3, 1e-4   # card vs CPU (the port vs JAX limits)
+GRAD_SMALL_RES, GRAD_SMALL_SPP = 64, 4   # [30b]
+GRAD_TILE_RAYS = 1 << 16                 # [30b], [30c]: rays per autograd tile
+DIST_RES = 64                            # [31]
+
+
+def grad_scene(api, ParamSet, compile_fn, with_floor=True, sigma_s=0.6):
+    """tests/test_grad.py's scene (a point light above a scattering
+    homogeneous cube over a matte disk) through a package's api and
+    compiler: this package's, or the JAX package's in the CPU test."""
+    api._state.__init__()
+    api.pbrt_init({"quiet": True})
+    api.pbrt_look_at([0, 0.5, -4], [0, 0, 0], [0, 1, 0])
+    cam_p = ParamSet()
+    cam_p.add("float", "fov", [45.0])
+    api.pbrt_camera("perspective", cam_p)
+    api.pbrt_world_begin()
+    lp = ParamSet()
+    lp.add("point", "from", [0.0, 2.5, 0.0])
+    lp.add("rgb", "I", [30.0, 30.0, 30.0])
+    api.pbrt_light_source("point", lp)
+    if with_floor:
+        api.pbrt_attribute_begin()
+        api.pbrt_translate(0.0, -1.4, 0.0)
+        api.pbrt_rotate(-90.0, 1.0, 0.0, 0.0)
+        m2 = ParamSet()
+        m2.add("rgb", "Kd", [0.6, 0.45, 0.3])
+        api.pbrt_material("matte", m2)
+        d = ParamSet()
+        d.add("float", "radius", [6.0])
+        api.pbrt_shape("disk", d)
+        api.pbrt_attribute_end()
+    vp = ParamSet()
+    vp.add("point", "p0", [-1.5, -1.2, -1.5])
+    vp.add("point", "p1", [1.5, 1.8, 1.5])
+    vp.add("rgb", "sigma_a", [0.08, 0.08, 0.08])
+    vp.add("rgb", "sigma_s", [sigma_s] * 3)
+    api.pbrt_volume("homogeneous", vp)
+    try:
+        return compile_fn(api.get_state().render_options)
+    finally:
+        api._state.__init__()
+
+
+def grad_port_scene(device, **kw):
+    from pbrt_tpu_torch.scene import api
+    from pbrt_tpu_torch.scene.compile import compile_scene
+    from pbrt_tpu_torch.scene.paramset import ParamSet
+
+    return grad_scene(api, ParamSet, lambda ro: compile_scene(ro, device), **kw)
+
+
+def grad_ray_arrays(n_side=8, z=-4.0, y=0.5, miss_half=False):
+    """tests/test_grad.py's rays as NumPy (o, d); miss_half turns every
+    other ray away from the scene (up and back, past the light and the
+    cube)."""
+    xs = np.linspace(-0.45, 0.45, n_side, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs, indexing="xy")
+    n = n_side * n_side
+    d = np.stack([gx.ravel(), gy.ravel(), np.ones(n, np.float32)], -1)
+    if miss_half:
+        d[1::2] = np.array([0.1, 1.0, -1.0], np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.tile(np.array([[0.0, y, z]], np.float32), (n, 1))
+    return o, d
+
+
+def grad_port_rays(o, d, device):
+    """(Ray, pixel, sample index) of NumPy origins and directions."""
+    import torch
+    from pbrt_tpu_torch.core.geometry import Ray
+
+    n = len(o)
+    return (Ray(torch.as_tensor(o, device=device), torch.as_tensor(d, device=device),
+                torch.zeros(n, device=device), torch.full((n,), float("inf"), device=device),
+                torch.zeros(n, device=device)),
+            torch.arange(n, dtype=torch.int64, device=device),
+            torch.zeros(n, dtype=torch.int64, device=device))
+
+
+def grad_port_losses(scene, frozen):
+    """test_grad.py's four estimators in the port, on the scene's device:
+    name -> loss(s) for a 0-d scale tensor s."""
+    import torch
+    from pbrt_tpu_torch import diff
+    from pbrt_tpu_torch.integrators import photonvolume as pv
+    from pbrt_tpu_torch.integrators import surface, volume
+
+    dev = scene.geom.tri_v0.device
+    base_sa, base_ss = scene.volume.sigma_a, scene.volume.sigma_s
+    M, S = len(scene.materials), S_BINS
+
+    def inf(n):
+        return torch.full((n,), float("inf"), device=dev)
+
+    def march(s):
+        ray, pixel, sidx = grad_port_rays(*grad_ray_arrays(6), dev)
+        sc = diff.apply_params(scene, diff.DiffParams(sigma_a=base_sa * s))
+        vr = volume.li_single(sc, ray, inf(len(pixel)), pixel, sidx, n_steps=8, seed=0)
+        return torch.mean(vr.L) + torch.mean(vr.Tr)
+
+    def path(s):
+        ray, pixel, sidx = grad_port_rays(*grad_ray_arrays(6, y=-0.2), dev)
+        sc = diff.apply_params(scene, diff.DiffParams(kd_scale=torch.ones(M, S, device=dev) * s))
+        return torch.mean(surface.li_path(sc, ray, pixel, sidx, max_depth=2, seed=0))
+
+    def splat(s):
+        sc = diff.apply_params(scene, diff.DiffParams(
+            light_scale=torch.ones(scene.n_lights, device=dev) * s))
+        ctx = diff.diff_photon_ctx(sc, frozen)
+        w = torch.tensor([[0.0, 0.0, 1.0]], device=dev).repeat(4, 1)
+        flux, _ = pv.lphoton_volume(ctx.volume, torch.as_tensor(GRAD_Q_PTS, device=dev), w,
+                                    torch.zeros(4, device=dev), ctx.vol_n_used,
+                                    ctx.vol_max_dist2)
+        return torch.mean(flux)
+
+    def photonvolume(s):
+        ray, pixel, sidx = grad_port_rays(*grad_ray_arrays(4), dev)
+        sc = diff.apply_params(scene, diff.DiffParams(sigma_s=base_ss * s))
+        ctx = diff.diff_photon_ctx(sc, frozen)
+        vr = pv.li_photonvolume(sc, ctx, ray, inf(len(pixel)), pixel, sidx, n_steps=8, seed=0)
+        return torch.mean(vr.L) + 0.1 * torch.mean(vr.Tr)
+
+    return {"march": march, "path": path, "splat": splat, "photonvolume": photonvolume}
+
+
+def port_grad(loss_fn, device, s0=1.0):
+    """(d loss / d s, loss) at s0 by autograd."""
+    import torch
+
+    s = torch.tensor(s0, device=device, requires_grad=True)
+    loss = loss_fn(s)
+    (g,) = torch.autograd.grad(loss, s)
+    return float(g), float(loss.detach())
+
+
+def port_fd(loss_fn, device, h):
+    """Central difference of loss at s = 1 in float32 steps."""
+    import torch
+
+    with torch.no_grad():
+        lp, lm = (float(loss_fn(torch.tensor(float(np.float32(1.0) + np.float32(sh)),
+                                             device=device)))
+                  for sh in (h, -h))
+    return (lp - lm) / (2.0 * h)
+
+
+def phase_grad_estimators(device):
+    """[30a]: the four estimators on the card, against the port's CPU
+    gradient of the same estimator (over the CPU's frozen shoot) and
+    central differences on the card; the card's own frozen shoot must
+    hold the CPU's deposits. -> dict."""
+    import torch
+    from pbrt_tpu_torch import diff
+
+    cpu = torch.device("cpu")
+    scenes = {dev: {"plain": grad_port_scene(dev), "photon": grad_port_scene(dev, sigma_s=0.9)}
+              for dev in (device, cpu)}
+    frozen = diff.freeze_photon_shoot(scenes[cpu]["photon"], **GRAD_FREEZE)
+    frozen_card = diff.freeze_photon_shoot(scenes[device]["photon"], **GRAD_FREEZE)
+    for code, entry in frozen.classes.items():
+        card = frozen_card.classes[code]
+        if (entry is None) != (card is None) or (
+                entry is not None and not np.array_equal(entry[0], card[0])):
+            raise RuntimeError(f"[30a] the card's frozen shoot differs in class {code}")
+    out = {"frozen_photons": {c: 0 if e is None else len(e[0])
+                              for c, e in frozen.classes.items()}}
+    for name, (which, h, rtol) in GRAD_FD.items():
+        fr = frozen if which == "photon" else None
+        card_fn = grad_port_losses(scenes[device][which], fr)[name]
+        cpu_fn = grad_port_losses(scenes[cpu][which], fr)[name]
+        t0 = time.perf_counter()
+        g, loss = port_grad(card_fn, device)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        g_cpu, loss_cpu = port_grad(cpu_fn, cpu)
+        g_fd = port_fd(card_fn, device, h)
+        r = {"grad": g, "loss": loss, "grad_cpu": g_cpu, "loss_cpu": loss_cpu, "grad_fd": g_fd,
+             "seconds": sec}
+        log(f"  [30a] {name}: d loss / d s = {g:.7g} on the card ({sec:.3f} s), {g_cpu:.7g} on "
+            f"the CPU, central difference {g_fd:.7g} (h {h:g}); loss {loss:.7g} / {loss_cpu:.7g}")
+        if not (np.isfinite(g) and np.isfinite(g_fd) and g != 0.0):
+            raise RuntimeError(f"[30a] {name}: gradient not finite or zero")
+        if (abs(g - g_cpu) > GRAD_RTOL * abs(g_cpu)
+                or abs(loss - loss_cpu) > GRAD_LOSS_RTOL * abs(loss_cpu)):
+            raise RuntimeError(f"[30a] {name}: card and CPU disagree")
+        if abs(g - g_fd) > rtol * abs(g_fd) + 1e-6:
+            raise RuntimeError(f"[30a] {name}: autograd and central difference disagree")
+        if name == "splat" and abs(g - loss) > 1e-4 * abs(loss):
+            raise RuntimeError("[30a] splat: photon power is not linear in light power")
+        out[name] = r
+    return out
+
+
+def grad_render(scene, ro, kd_scale, max_depth, tile_rays, rr_start=3, want_grad=True):
+    """The mean over every camera sample and spectral bin of the path
+    tracer's radiance (the render's camera rays and counters), with the
+    albedo scale `kd_scale` [M, S]: (loss, d loss / d kd_scale or None).
+    Each tile of at most `tile_rays` rays runs forward and backward on its
+    own, so the tape holds one tile."""
+    import torch
+    from pbrt_tpu_torch import diff
+    from pbrt_tpu_torch.cameras.cameras import make_camera
+    from pbrt_tpu_torch.core.transform import Transform
+    from pbrt_tpu_torch.film import film as film_mod
+    from pbrt_tpu_torch.integrators.surface import li_path
+    from pbrt_tpu_torch.samplers.samplers import camera_samples, make_sampler
+
+    dev = kd_scale.device
+    film = film_mod.make_film(ro.film_name, ro.film_params,
+                              film_mod.make_filter(ro.filter_name, ro.filter_params), {})
+    camera = make_camera(ro.camera_name, ro.camera_params, ro.camera_to_world or Transform(),
+                         film.xres, film.yres)
+    sampler = make_sampler(ro.sampler_name, ro.sampler_params, {})
+    spp = sampler.spp
+    n_pix = film.nx * film.ny
+    per_tile = max(1, tile_rays // spp)
+    norm = 1.0 / (n_pix * spp * S_BINS)
+    kd = kd_scale.detach().clone().requires_grad_(want_grad)
+    sc = diff.apply_params(scene, diff.DiffParams(kd_scale=kd))
+    loss = torch.zeros((), device=dev)
+    grad = torch.zeros_like(kd) if want_grad else None
+    for p0 in range(0, n_pix, per_tile):
+        ids = torch.arange(p0, min(p0 + per_tile, n_pix), device=dev)
+        cs = camera_samples(sampler, ids % film.nx + film.x0, ids // film.nx + film.y0,
+                            film.xres, 0)
+        ray, _ = camera.generate_rays(cs.px, cs.py, cs.u_lens1, cs.u_lens2, cs.u_time)
+        sidx = torch.arange(spp, dtype=torch.int64, device=dev).repeat(len(ids))
+        with torch.set_grad_enabled(want_grad):
+            tile = li_path(sc, ray, cs.pixel, sidx, max_depth=max_depth, seed=0,
+                           rr_start=rr_start).sum() * norm
+        if want_grad:
+            grad += torch.autograd.grad(tile, kd)[0]
+        loss += tile.detach()
+    return float(loss), grad
+
+
+def phase_grad_small(tmp, device):
+    """[30b]: d mean / d kd_scale of the small scene's path trace (K1) at
+    GRAD_SMALL_RES^2, 4 spp, depth 5; every K1 launch of the forward
+    passes held bit for bit against the plain twin; the gradient against
+    central differences along the matte materials' albedo, with Russian
+    roulette off (as test_grad.py's depth 2 keeps it off: a survival draw
+    flips with the scale), since a matte surface has one lobe and no
+    other discrete choice moves with its albedo. -> dict."""
+    import torch
+    from pbrt_tpu_torch.ops import intersect_cuda
+
+    res, spp, depth, h = GRAD_SMALL_RES, GRAD_SMALL_SPP, 5, 1e-2
+    scene, ro = compile_text(small_scene_text(res, spp), "grad_small", tmp, device)
+    ones = torch.ones((len(scene.materials), S_BINS), device=device)
+    rec = K1Recorder(intersect_cuda.tri_t_pass_cuda, intersect_cuda.tri_t_pass_plain)
+    intersect_cuda.launches = 0
+    t0 = time.perf_counter()
+    with NoPlain(), Patched((intersect_cuda, "tri_t_pass_cuda", rec)):
+        loss, g = grad_render(scene, ro, ones, depth, GRAD_TILE_RAYS)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = intersect_cuda.launches
+    r = rec.summary()
+    if launches <= 0 or r["launches"] != launches:
+        raise RuntimeError(f"[30b] K1 launches {launches}, checked {r['launches']}")
+    if not bool(torch.isfinite(g).all()) or float(g.abs().sum()) == 0.0:
+        raise RuntimeError("[30b] gradient not finite or zero")
+    # central differences along the matte rows, Russian roulette off
+    v = torch.tensor([[1.0 if m.kind == "matte" else 0.0] for m in scene.materials],
+                     device=device).expand_as(ones)
+    _, g_rr0 = grad_render(scene, ro, ones, depth, GRAD_TILE_RAYS, rr_start=depth)
+    ad = float((g_rr0 * v).sum())
+    lp, lm = (grad_render(scene, ro, ones + sh * v, depth, GRAD_TILE_RAYS, rr_start=depth,
+                          want_grad=False)[0] for sh in (h, -h))
+    fd = (lp - lm) / (2.0 * h)
+    log(f"  [30b] {res}x{res}, {spp} spp, depth {depth}: loss {loss:.7g}, |grad| sum "
+        f"{float(g.abs().sum()):.7g}, {sec:.2f} s with every K1 launch checked; {launches} K1 "
+        f"launches bit-equal (kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms, live share {r['live_share']:.4f}); along the matte albedo, "
+        f"RR off: autograd {ad:.7g}, central difference {fd:.7g} (h {h:g})")
+    if not (np.isfinite(fd) and ad != 0.0) or abs(ad - fd) > 2e-2 * abs(fd):
+        raise RuntimeError("[30b] autograd and central difference disagree")
+    return {"res": res, "spp": spp, "loss": loss, "seconds": sec, "k1_launches": launches,
+            "k1": r, "grad_matte_dir": ad, "fd_matte_dir": fd}
+
+
+def phase_grad_bench(tmp, device):
+    """[30c]: bench.py's grad leg: d mean / d kd_scale of the bench
+    geometry's path trace at BENCH_RES^2, 1 spp, depth 5, in tiles of
+    GRAD_TILE_RAYS rays; CUDA events around every K2 launch. -> dict."""
+    import torch
+    from pbrt_tpu_torch.ops import bvh_cuda
+
+    scene, ro = compile_text(bench_scene_text(BENCH_RES), "grad_bench", tmp, device)
+    ones = torch.ones((len(scene.materials), S_BINS), device=device)
+    timer = LaunchTimer(bvh_cuda.wide_sweep_cuda, work=k2_work)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    bvh_cuda.launches = 0
+    t0 = time.perf_counter()
+    with NoPlain(), Patched((bvh_cuda, "wide_sweep", timer)):
+        loss, g = grad_render(scene, ro, ones, 5, GRAD_TILE_RAYS)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = bvh_cuda.launches
+    peak = torch.cuda.max_memory_allocated(device)
+    rays = BENCH_RES * BENCH_RES
+    k2_ms = timer.total_ms()
+    work = timer.work_rows()
+    bound = sum(max(f, b) for f, b in (k2_launch_bound(*w) for w in work))
+    log(f"  [30c] {BENCH_RES}x{BENCH_RES}, 1 spp, depth 5, {-(-rays // GRAD_TILE_RAYS)} tiles of "
+        f"{GRAD_TILE_RAYS} rays: {sec:.2f} s forward + backward, {rays / sec:.0f} grad rays/s; "
+        f"loss {loss:.7g}; K2 {launches} launches, spans {k2_ms:.1f} ms ({k2_ms / 1e3 / sec:.3f} "
+        f"of the leg), {sum(w[0] for w in work)} pairs, bound {bound:.3f} ms; peak memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the scene)")
+    if launches <= 0:
+        raise RuntimeError("[30c] the gradient's forward passes did not launch K2")
+    if not bool(torch.isfinite(g).all()) or float(g.abs().sum()) == 0.0:
+        raise RuntimeError("[30c] gradient not finite or zero")
+    return {"res": BENCH_RES, "seconds": sec, "grad_rays_per_s": rays / sec, "loss": loss,
+            "k2_launches": launches, "k2_event_ms": k2_ms, "k2_pairs": sum(w[0] for w in work),
+            "k2_bound_ms": bound, "peak_bytes": peak, "peak_above_scene_bytes": peak - base}
+
+
+def run_grad_phases(tmp, device):
+    """[30] -> dict."""
+    out = {}
+    for key, title, fn in (
+            ("estimators", "[30a] test_grad.py's four estimators on the card vs the CPU and "
+                           "central differences", lambda: phase_grad_estimators(device)),
+            ("small", f"[30b] d mean / d kd_scale of the small scene (K1), "
+                      f"{GRAD_SMALL_RES}x{GRAD_SMALL_RES}, {GRAD_SMALL_SPP} spp, depth 5",
+             lambda: phase_grad_small(tmp, device)),
+            ("bench", f"[30c] the grad leg: d mean / d kd_scale of the bench geometry (K2), "
+                      f"{BENCH_RES}x{BENCH_RES}, 1 spp, depth 5",
+             lambda: phase_grad_bench(tmp, device))):
+        log(title)
+        t0 = time.perf_counter()
+        out[key] = fn()
+        log(f"  {title.split()[0]} took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [31]: process groups on the card (parallel/mesh.py through the CLI)
+
+def dist_scene_text(res, bench=False):
+    """tests/test_distributed.py's photonvolume scene at res^2; bench adds
+    the bench geometry (K2 in the shoot and the render) with a caustic-free
+    quota, so the shoot ends on its indirect and volume photons."""
+    s = (f'Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]\n'
+         'Sampler "lowdiscrepancy" "integer pixelsamples" [1]\n'
+         'LookAt 0 0 -4  0 0 0  0 1 0\nCamera "perspective" "float fov" [45]\n'
+         'SurfaceIntegrator "path" "integer maxdepth" [2]\n'
+         'VolumeIntegrator "photonvolume" "float stepsize" [1.0]\n'
+         '  "integer volumephotons" [100] "integer nused" [10] "float maxdist" [0.8]\n')
+    if bench:
+        s += '  "integer causticphotons" [0] "integer indirectphotons" [2000]\n'
+    s += ('WorldBegin\nLightSource "point" "point from" [0 2 0] "rgb I" [20 20 20]\n'
+          'Volume "homogeneous" "point p0" [-1.5 -1.5 -1.5] "point p1" [1.5 1.5 1.5]\n'
+          '  "rgb sigma_a" [.05 .05 .05] "rgb sigma_s" [.8 .8 .8]\n')
+    if bench:
+        P, idx = uv_sphere(260, 260, 1.0, (0.0, 0.4, 0.0))
+        s += ('Material "matte" "rgb Kd" [.45 .35 .65]\n' + mesh(P, idx)
+              + 'Material "matte" "rgb Kd" [.55 .55 .5]\n' + mesh(FLOOR, FLOOR_IDX))
+    return s + "WorldEnd\n"
+
+
+class GroupEnv:
+    """The JAX package's rendezvous variables for this process (rank
+    `pid` of `n` at 127.0.0.1:port) for the length of a with block."""
+
+    KEYS = ("PBRT_COORDINATOR", "PBRT_NUM_PROCESSES", "PBRT_PROCESS_ID")
+
+    def __init__(self, port, n, pid):
+        self.values = (f"127.0.0.1:{port}", str(n), str(pid))
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        os.environ.update(zip(self.KEYS, self.values))
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def group_render(text, name, tmp, n, extra=()):
+    """Rank 0 of an n-rank --distributed render in this process (ranks
+    1.. as subprocesses of the CLI, each with its own timeout) ->
+    (rank 0's image, seconds, [the other ranks' images], the backend,
+    rank 0's collectives and their seconds, the other ranks' counts)."""
+    from pbrt_tpu_torch.core import probes
+    from pbrt_tpu_torch.io.image import read_image
+    from pbrt_tpu_torch.parallel import mesh as pmesh
+
+    port = free_port()
+    path = os.path.join(tmp, name + ".pbrt")
+    with open(path, "w") as f:
+        f.write(text)
+    procs = []
+    for pid in range(1, n):
+        env = dict(os.environ, PYTHONPATH=REPO, PBRT_COORDINATOR=f"127.0.0.1:{port}",
+                   PBRT_NUM_PROCESSES=str(n), PBRT_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "pbrt_tpu_torch.main", "--distributed", "--verbose", *extra,
+             "--outfile", os.path.join(tmp, f"{name}_{pid}.pfm"), path],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    meshes = []
+    real_mesh = pmesh.mesh_from_options
+
+    def record(options=None):
+        meshes.append(real_mesh(options))
+        return meshes[-1]
+
+    probes.reset()
+    try:
+        with GroupEnv(port, n, 0), Patched((pmesh, "mesh_from_options", record)):
+            img, sec = render(text, name + "_0", tmp, ("--distributed", *extra))
+        logs = []
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+            if p.returncode != 0:
+                raise RuntimeError(f"[31] {name}: a rank failed:\n{logs[-1][-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    counts = probes.counters()
+    backends = {m.backend for m in meshes if m is not None}
+    if len(backends) != 1 or any(m is None or m.world != n for m in meshes):
+        raise RuntimeError(f"[31] {name}: the render did not run over the group ({meshes})")
+    others = [int(re.search(r"mesh/collectives\s+([\d,]+)", lg).group(1).replace(",", ""))
+              for lg in logs]
+    return (img, sec, [read_image(os.path.join(tmp, f"{name}_{pid}.pfm")) for pid in range(1, n)],
+            backends.pop(), counts.get("mesh/collectives", 0),
+            counts.get("mesh/collective_us", 0) / 1e6, others)
+
+
+def phase_process_groups(tmp, device):
+    """[31]: tests/test_distributed.py's photonvolume scene at DIST_RES^2
+    through the CLI: --distributed at world size 1 (NCCL) bit for bit
+    against the unsharded card render, and two gloo ranks on the one
+    card (rank 1 a subprocess) against it at that test's limits; then
+    the scene with the bench geometry at world size 1 (NCCL), K2's
+    launches under the group counted, bit for bit. -> dict."""
+    from pbrt_tpu_torch import main as cli
+    from pbrt_tpu_torch.ops import bvh_cuda
+
+    extra = ("--tile-samples", str(DIST_RES * DIST_RES))
+    out = {}
+    with Patched((cli, "GROUP_TIMEOUT_S", 120)):
+        single, sec1 = render(dist_scene_text(DIST_RES), "dist_single", tmp, extra)
+        img, sec, _, backend, n_coll, coll_s, _ = group_render(
+            dist_scene_text(DIST_RES), "dist_nccl", tmp, 1, extra)
+        equal = bool(np.array_equal(img, single))
+        log(f"  [31] unsharded {sec1:.2f} s; --distributed world 1 ({backend}) {sec:.2f} s, "
+            f"{n_coll} collectives in {coll_s:.3f} s; bit-equal to the unsharded render: {equal}")
+        if backend != "nccl" or not equal:
+            raise RuntimeError("[31] the NCCL world-1 render is not the unsharded render")
+        out["nccl_world1"] = {"seconds": sec, "single_seconds": sec1, "collectives": n_coll,
+                              "collective_seconds": coll_s}
+        img, sec, (img1,), backend, n_coll, coll_s, others = group_render(
+            dist_scene_text(DIST_RES), "dist_gloo", tmp, 2, extra)
+        d_single = float(np.abs(img - single).max())
+        d_ranks = float(np.abs(img - img1).max())
+        log(f"  [31] two {backend} ranks on one card: {sec:.2f} s (rank 0, rank 1 a subprocess), "
+            f"rank 0 {n_coll} collectives in {coll_s:.3f} s, rank 1 {others[0]}; max |diff| "
+            f"vs unsharded {d_single:.3g}, between the ranks {d_ranks:.3g}")
+        if (backend != "gloo" or not np.allclose(img, single, rtol=1e-4, atol=1e-5)
+                or not np.allclose(img, img1, rtol=1e-5, atol=1e-7)):
+            raise RuntimeError("[31] the two-rank render disagrees")
+        out["gloo_two_ranks"] = {"seconds": sec, "collectives": n_coll,
+                                 "collective_seconds": coll_s, "rank1_collectives": others[0],
+                                 "max_diff_single": d_single, "max_diff_ranks": d_ranks}
+        bvh_cuda.launches = 0
+        single, sec1 = render(dist_scene_text(DIST_RES, bench=True), "distb_single", tmp, extra)
+        k2_single = bvh_cuda.launches
+        bvh_cuda.launches = 0
+        img, sec, _, backend, n_coll, coll_s, _ = group_render(
+            dist_scene_text(DIST_RES, bench=True), "distb_nccl", tmp, 1, extra)
+        k2 = bvh_cuda.launches
+        equal = bool(np.array_equal(img, single))
+        log(f"  [31] with the bench geometry: unsharded {sec1:.2f} s ({k2_single} K2 launches); "
+            f"world 1 ({backend}) {sec:.2f} s, {k2} K2 launches, {n_coll} collectives in "
+            f"{coll_s:.3f} s; bit-equal: {equal}")
+        if k2 <= 0 or k2 != k2_single or not equal:
+            raise RuntimeError("[31] the bench geometry's group render differs or ran no K2")
+        out["bench_nccl_world1"] = {"seconds": sec, "single_seconds": sec1, "k2_launches": k2,
+                                    "collectives": n_coll, "collective_seconds": coll_s}
+    return out
+
+
 def run_cli(scene_text, out_name, tmp, extra=()):
     """Write the scene and run it through the CLI entry point -> seconds."""
     from pbrt_tpu_torch import main as cli
@@ -2833,6 +3355,15 @@ def main():
         sliced = run_slice_phases(tmp)
         longtail = run_longtail_phases(tmp)
         mlt = run_mlt_phases(tmp)
+        log("[30] gradients on the card (pbrt_tpu_torch/diff.py)")
+        t0 = time.perf_counter()
+        grad = run_grad_phases(tmp, device)
+        log(f"  [30] took {time.perf_counter() - t0:.1f} s")
+        log(f"[31] process groups on the card (parallel/mesh.py through the CLI): "
+            f"tests/test_distributed.py's scene at {DIST_RES}x{DIST_RES}")
+        t0 = time.perf_counter()
+        groups = phase_process_groups(tmp, device)
+        log(f"  [31] took {time.perf_counter() - t0:.1f} s")
 
     # K1: every launch of the small render, the goldens, rainbowc, the
     # small textured scene, [17], [18], [24], [25], [26a], [26b] and [29]
@@ -2871,6 +3402,15 @@ def main():
                        + longtail["benchlens"]["k2_launches"]
                        + longtail["benchirr"]["k2_launches"]
                        + mlt["mlt"]["benchmlt"]["spans"]["k2_launches"])
+    # [30b] and [30c]: the launches of the gradients' forward passes
+    # (inside autograd); [31]: K2 under a process group
+    k1["grad"] = grad["small"]
+    k1["launches"] += grad["small"]["k1_launches"]
+    k2["grad"] = grad["bench"]
+    k2["process_group"] = groups["bench_nccl_world1"]
+    k2["launches"] += grad["bench"]["k2_launches"] + groups["bench_nccl_world1"]["k2_launches"]
+    log(f"  gradient estimators: {json.dumps(grad['estimators'], default=float)}")
+    log(f"  process groups: {json.dumps(groups, default=float)}")
     log(f"  photon legs: {json.dumps(photon['photon_legs'])}")
     log(f"  motion: {json.dumps(sliced['motion'], default=float)}; checkpoint: "
         f"{json.dumps(sliced['checkpoint'])}")

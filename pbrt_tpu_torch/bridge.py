@@ -30,6 +30,12 @@ package's VplSets (p, n, le, valid), SurfacePoints (p, n, area, E) and
 ProbeGrid (lo, hi, dims, coeffs, lmax): `vpls_from_arrays`,
 `surface_points_from_arrays`, `probe_grid_from_arrays`, and
 `tuple_to_arrays` back.
+
+Gradients' inputs: `diff_params_from_arrays` gives a DiffParams, and
+`frozen_shoot_from_arrays` turns either package's FrozenShoot,
+flattened by `frozen_shoot_to_arrays`, into this package's (indices,
+positions, directions, each class's MapStructure, cfg), so both packages
+can be differentiated over one frozen shoot.
 """
 from __future__ import annotations
 
@@ -306,3 +312,62 @@ def probe_grid_from_arrays(arrays: dict, device, prefix: str = "probes") -> Prob
     return ProbeGrid(**_tensors(arrays, prefix, ("lo", "hi", "coeffs"), device),
                      dims=tuple(int(x) for x in np.asarray(arrays[f"{prefix}.dims"])),
                      lmax=int(np.asarray(arrays[f"{prefix}.lmax"])))
+
+
+def diff_params_from_arrays(arrays: dict, device, prefix: str = "params"):
+    """diff.DiffParams from arrays["<prefix>.<field>"] (sigma_a, sigma_s,
+    light_scale, kd_scale; absent fields stay None)."""
+    from pbrt_tpu_torch.diff import DiffParams
+
+    return DiffParams(**{f: torch.tensor(np.asarray(arrays[f"{prefix}.{f}"]),
+                                         dtype=torch.float32, device=device)
+                         for f in DiffParams._fields if f"{prefix}.{f}" in arrays})
+
+
+FROZEN_SCALARS = ("n_batches", "B", "seed", "max_depth", "has_volume", "majorant")
+
+
+def frozen_shoot_to_arrays(frozen, prefix: str = "frozen") -> dict:
+    """Flatten either package's diff.FrozenShoot: its scalars, cfg
+    ("<prefix>.cfg.<key>") and each class's idx, pos, wi, nshot and
+    MapStructure ("<prefix>.c<code>.<field>", "...st.<field>")."""
+    out = {f"{prefix}.{f}": np.asarray(getattr(frozen, f)) for f in FROZEN_SCALARS}
+    out.update({f"{prefix}.cfg.{k}": np.asarray(v) for k, v in frozen.cfg.items()})
+    for code, entry in frozen.classes.items():
+        if entry is None:
+            continue
+        idx, pos, wi, st, nshot = entry
+        c = f"{prefix}.c{code}"
+        out.update({f"{c}.idx": np.asarray(idx), f"{c}.pos": np.asarray(pos),
+                    f"{c}.wi": np.asarray(wi), f"{c}.nshot": np.asarray(nshot)})
+        out.update({f"{c}.st.{f}": np.asarray(v) for f, v in st._asdict().items()})
+    return out
+
+
+def frozen_shoot_from_arrays(arrays: dict, prefix: str = "frozen"):
+    """This package's diff.FrozenShoot from frozen_shoot_to_arrays' keys
+    (the JAX package's frozen shoot carried across): a class without
+    keys is empty (None)."""
+    from pbrt_tpu_torch.diff import _CLASS_CODES, FrozenShoot
+    from pbrt_tpu_torch.photon.map import MapStructure
+
+    def a(key):
+        return np.asarray(arrays[f"{prefix}.{key}"])
+
+    classes = {}
+    for code in _CLASS_CODES.values():
+        c = f"c{code}"
+        if f"{prefix}.{c}.idx" not in arrays:
+            classes[code] = None
+            continue
+        st = MapStructure(order=a(f"{c}.st.order"), cell_start=a(f"{c}.st.cell_start"),
+                          occ=a(f"{c}.st.occ"), lo=a(f"{c}.st.lo"),
+                          inv_cell=a(f"{c}.st.inv_cell"),
+                          dims=tuple(int(x) for x in a(f"{c}.st.dims")))
+        classes[code] = (a(f"{c}.idx"), a(f"{c}.pos"), a(f"{c}.wi"), st,
+                         int(a(f"{c}.nshot")))
+    cfg = {k[len(prefix) + 5:]: a(k[len(prefix) + 1:]).item()
+           for k in arrays if k.startswith(f"{prefix}.cfg.")}
+    return FrozenShoot(n_batches=int(a("n_batches")), B=int(a("B")), seed=int(a("seed")),
+                       max_depth=int(a("max_depth")), has_volume=bool(a("has_volume")),
+                       majorant=float(a("majorant")), classes=classes, cfg=cfg)

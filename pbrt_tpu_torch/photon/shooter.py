@@ -45,6 +45,7 @@ from pbrt_tpu_torch.materials.bsdf import (
     has_transmissive,
     material_lobes,
 )
+from pbrt_tpu_torch.parallel import mesh as pmesh
 from pbrt_tpu_torch.photon import map as pmap
 from pbrt_tpu_torch.samplers.samplers import integrator_uniform as iu
 from pbrt_tpu_torch.volumes.registry import intersect_p as vol_intersect_p
@@ -95,12 +96,18 @@ def compute_majorant(scene, has_volume: bool) -> float:
     return max(sig_max * max(gmax, 1.0), 1e-6)
 
 
-def shoot_batch_fn(scene, max_depth: int, has_volume: bool):
+def shoot_batch_fn(scene, max_depth: int, has_volume: bool,
+                   sig_majorant: Optional[float] = None):
     """-> batch(lane [B] int64, shot_base [B] int64, seed) -> records (the
     JAX package's _shoot_batch_fn): a dict of [B, D, ...] device tensors
     pos, alpha, wi, cls (int64; 0 none, 1 caustic, 2 indirect, 3 direct,
     4 volume), n (faceforwarded normal), rho_r, rho_t (reflectances) and
-    rp (radiance-photon candidate), D records per path."""
+    rp (radiance-photon candidate), D records per path.
+
+    sig_majorant: a precomputed Woodcock majorant, for a scene whose
+    sigma tables require grad (diff.py re-traces the shoot with
+    differentiable parameters; the majorant is a detached sampling
+    control, and computing it reads the tables on the host)."""
     from pbrt_tpu_torch.integrators.surface import make_frame
     from pbrt_tpu_torch.scene.compile import eval_bsdf_params
 
@@ -110,7 +117,8 @@ def shoot_batch_fn(scene, max_depth: int, has_volume: bool):
                               device=dev)
     world_rad = float(np.linalg.norm(scene.world_hi - scene.world_lo) * 0.5) + 1e-3
     vol = scene.volume if has_volume else None
-    sig_majorant = compute_majorant(scene, has_volume)
+    if sig_majorant is None:
+        sig_majorant = compute_majorant(scene, has_volume)
     # the interaction distance is taken against the Y-weighted sigma_t, as
     # the reference compares xi with Tr.y() (photonshooter.cpp:75);
     # y_norm maps a flat sigma to itself
@@ -321,6 +329,14 @@ def build_photon_maps(scene, surf_params, vol_params, options=None) -> PhotonCtx
     # photonshooter.cpp:247): large quotas amortize the per-batch sync
     quota_total = n_caustic + n_indirect + n_volume
     B = 4096 if quota_total <= 300_000 else 32768
+    # sharded over a process group: each rank traces its slice of the
+    # batch's lanes and the all-gather merges the records in rank order
+    # (the photon-merge mutex, photonshooter.cpp:280-355), before the
+    # count fetch, so every rank fills identical stores
+    mesh = pmesh.mesh_from_options(options)
+    B = pmesh.round_to_world(mesh, B)
+    if mesh is not None:
+        info(f"photon shooting sharded over {mesh.world} ranks")
     # direct photons have no user quota in the reference (they grow for the
     # whole shoot, for the radiance precompute); their own target keeps a
     # direct map in scenes with "indirectphotons 0"
@@ -337,12 +353,16 @@ def build_photon_maps(scene, surf_params, vol_params, options=None) -> PhotonCtx
     if quick:
         max_batches = min(max_batches, max(32, int(np.ceil(quota_total * 4 / B))))
     lane = torch.arange(B, dtype=torch.int64, device=dev)
+    if mesh is not None:
+        lane = pmesh.shard_batch(mesh, lane)
     t0 = time.time()
     batches = 0
     aborted = False
     short = {}
     for bi in range(max_batches):
-        r = batch_fn(lane, torch.full((B,), shots, dtype=torch.int64, device=dev), seed)
+        r = batch_fn(lane, torch.full(lane.shape, shots, dtype=torch.int64, device=dev), seed)
+        if mesh is not None:
+            r = dict(zip(r, pmesh.gather_replicated(mesh, list(r.values()))))
         shots += B
         batches += 1
         pos, al, wi = r["pos"].reshape(-1, 3), r["alpha"].reshape(-1, S), r["wi"].reshape(-1, 3)

@@ -39,6 +39,7 @@ from pbrt_tpu_torch.integrators import photonmap as photonmap_int
 from pbrt_tpu_torch.integrators import photonvolume as photonvolume_int
 from pbrt_tpu_torch.integrators import surface as surf_int
 from pbrt_tpu_torch.integrators import volume as vol_int
+from pbrt_tpu_torch.parallel import mesh as pmesh
 from pbrt_tpu_torch.photon import shooter
 from pbrt_tpu_torch.samplers.samplers import (
     S_ADAPTIVE,
@@ -359,6 +360,12 @@ def render_sampler(scene: CompiledScene, ro: RenderOptions, film, camera, sample
     tile_samples = int(options.get("tile_samples")
                        or (PHOTON_TILE_SAMPLES if uses_photons(ro) else DEFAULT_TILE_SAMPLES))
     pix_per_tile = max(1, tile_samples // spp)
+    # sharded over a process group: each rank renders its slice of every
+    # tile into its own film accumulators, reduced before any write
+    mesh = pmesh.mesh_from_options(options)
+    pix_per_tile = pmesh.round_to_world(mesh, pix_per_tile)
+    if mesh is not None:
+        info(f"sharding render tiles over {mesh.world} ranks")
     n_pix = film.nx * film.ny
     n_tiles = (n_pix + pix_per_tile - 1) // pix_per_tile
 
@@ -366,6 +373,13 @@ def render_sampler(scene: CompiledScene, ro: RenderOptions, film, camera, sample
     ckpt_path = options.get("checkpoint")
     ckpt_every = int(options.get("checkpoint_every", 64))
     start_tile = _resume(ckpt_path, film, spp, seed, state)
+    if mesh is not None:
+        # rank 0's checkpoint holds the reduced film: it alone keeps it,
+        # and every rank starts at its tile
+        if mesh.rank != 0:
+            state = film_mod.init_state(film, device)
+        start_tile = int(pmesh.reduce_sum(mesh, [torch.tensor(
+            [start_tile if mesh.rank == 0 else 0], dtype=torch.int64, device=device)])[0])
     if start_tile:
         info(f"resuming render from checkpoint tile {start_tile}/{n_tiles}")
     vetoed = torch.zeros((), dtype=torch.int64, device=device)
@@ -379,16 +393,26 @@ def render_sampler(scene: CompiledScene, ro: RenderOptions, film, camera, sample
             # tile shape; the duplicate deposits cancel in the weight
             # normalization of that pixel
             ids = np.concatenate([ids, np.full(pix_per_tile - n_real, ids[-1], np.int64)])
+        if mesh is not None:
+            ids = pmesh.shard_batch(mesh, ids)
+            n_real = min(max(n_real - mesh.rank * len(ids), 0), len(ids))
         v = render_tile(scene, film, camera, sampler, li_fn, state,
                         torch.as_tensor(ids, device=device), seed, n_real)
         if v is not None:
             vetoed = vetoed + v
         probes.count("render/tiles")
-        probes.count("render/camera_samples", min(pix_per_tile, n_pix - ti * pix_per_tile) * spp)
+        probes.count("render/camera_samples", n_real * spp)
         if ckpt_path and (ti + 1) % ckpt_every == 0 and ti + 1 < n_tiles:
-            np.savez(ckpt_path, xyz=state.xyz.cpu().numpy(), weight=state.weight.cpu().numpy(),
-                     tile=ti + 1, shape=(film.ny, film.nx), spp=spp, seed=seed)
+            xyz, weight = state.xyz, state.weight
+            if mesh is not None:
+                xyz, weight = pmesh.reduce_sum(mesh, [xyz, weight])
+            if mesh is None or mesh.rank == 0:
+                np.savez(ckpt_path, xyz=xyz.cpu().numpy(), weight=weight.cpu().numpy(),
+                         tile=ti + 1, shape=(film.ny, film.nx), spp=spp, seed=seed)
         progress("Rendering", ti + 1, n_tiles, t_start)
+    if mesh is not None:
+        state = film_mod.FilmState(*pmesh.reduce_sum(mesh, list(state)))
+        vetoed = pmesh.reduce_sum(mesh, [vetoed])[0]
     last_stats.clear()
     last_stats.update(tiles=n_tiles - start_tile, start_tile=start_tile,
                       adaptive_vetoed=int(vetoed))

@@ -59,6 +59,7 @@ class CompiledScene:
     world_hi: np.ndarray
     accel: object = None                   # BvhScene, GridScene or KdScene
     volume: Optional[VolumeT] = None
+    kd_scale: object = None                # [M, S] albedo scale (diff.py); None: unscaled
     meas_tables: object = None             # [T,TH,TD,PD,3] measured BRDFs
     meas_index: dict = field(default_factory=dict)  # id(material) -> table row
     alpha_textures: list = field(default_factory=list)  # alpha masks (texture or float)
@@ -581,6 +582,10 @@ def eval_bsdf_params(scene: CompiledScene, hit) -> BsdfParams:
     for mi, mat in enumerate(scene.materials):
         sel = hit.mat == mi
         p = _lower_material(mat, sg, H)
+        if scene.kd_scale is not None:
+            # the differentiable albedo (diff.py): gradients with respect
+            # to a material's diffuse albedo flow through this product
+            p = p._replace(kd=p.kd * scene.kd_scale[mi])
         if has_mix and p.mix2 is None:
             # non-mix materials in a mix scene: amount 1 routes all the
             # weight to the first constituent

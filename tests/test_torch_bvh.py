@@ -302,8 +302,9 @@ def test_port_builds_with_its_own_builder_source():
     camera, the extra integrators with the SH module, the surfacepoints
     and createprobes renderers, and the loopsubdiv and nurbs shapes; the
     threefry streams, the bidirectional paths, the metropolis and
-    aggregatetest renderers, the grid and kd-tree accelerators and every
-    tool module), without importing jax or pbrt_tpu and without opening or running anything under
+    aggregatetest renderers, the grid and kd-tree accelerators, every
+    tool module, the gradients' diff module and the process-group mesh),
+    without importing jax or pbrt_tpu and without opening or running anything under
     pbrt_tpu/; its builder source is byte-identical to the
     reference's."""
     import os
@@ -344,6 +345,8 @@ from pbrt_tpu_torch.integrators import bidir
 from pbrt_tpu_torch.renderers import metropolis, aggregatetest
 from pbrt_tpu_torch.accel import grid, kdtree
 from pbrt_tpu_torch.tools import __main__ as tools_main, bsdftest, converters, exrtools
+from pbrt_tpu_torch import diff
+from pbrt_tpu_torch.parallel import mesh
 assert samplers._bc_buckets(4)[1].shape[1:] == (4, 2)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "pbrt_tpu")]
 assert not bad, bad
