@@ -47,8 +47,12 @@ small scene (K1, every launch checked) and of the bench geometry at
 1024^2, the grad leg of bench.py, K2) and process groups ([31]:
 tests/test_distributed.py's scene through --distributed at world size 1
 over NCCL, bit for bit, and over two gloo ranks sharing the card; the
-scene with the bench geometry at world size 1, K2 counted); then it
-prints one JSON line per the contract below. Every phase raises on
+scene with the bench geometry at world size 1, K2 counted) and the
+pure-Python BVH builders ([32]: the native builder refused, the bench
+geometry's sah and aac trees built in Python, their invariants, K2 over
+one 256^2 view of camera rays through each, every wave bit for bit, and
+against the native tree's traversal); then it prints one JSON line per
+the contract below. Every phase raises on
 failure; the script then exits
 non-zero and prints no result. It needs no network and no JAX.
 
@@ -1964,16 +1968,17 @@ def scene_parts(text, name, tmp, device):
 
 
 class BuildTimer:
-    """Stands in for a host tree build: its seconds, call by call."""
+    """Stands in for a host tree build: its seconds, call by call, and
+    the last tree it built."""
 
     def __init__(self, fn):
-        self.fn, self.seconds = fn, []
+        self.fn, self.seconds, self.last = fn, [], None
 
     def __call__(self, *args, **kw):
         t0 = time.perf_counter()
-        out = self.fn(*args, **kw)
+        self.last = self.fn(*args, **kw)
         self.seconds.append(time.perf_counter() - t0)
-        return out
+        return self.last
 
 
 def phase_mlt(tmp):
@@ -2639,6 +2644,8 @@ GRAD_RTOL, GRAD_LOSS_RTOL = 1e-3, 1e-4   # card vs CPU (the port vs JAX limits)
 GRAD_SMALL_RES, GRAD_SMALL_SPP = 64, 4   # [30b]
 GRAD_TILE_RAYS = 1 << 16                 # [30b], [30c]: rays per autograd tile
 DIST_RES = 64                            # [31]
+FALLBACK_RES = 256                       # [32]: one 256^2 view of camera rays
+FALLBACK_AGREE = 0.999                   # [32]: least share of rays with the native tree's prim
 
 
 def grad_scene(api, ParamSet, compile_fn, with_floor=True, sigma_s=0.6):
@@ -3137,6 +3144,117 @@ def phase_process_groups(tmp, device):
     return out
 
 
+def bvh_invariants(tree, lo, hi):
+    """The checks of tests/test_tools.py:91-108 on a binary tree over the
+    boxes lo/hi [P, 3]: the leaves name every primitive exactly once, and
+    each leaf's primitives lie inside its box (1e-4 slack) -> leaves."""
+    node_lo, node_hi, meta, order = (np.asarray(x) for x in tree)
+    n = len(lo)
+    if not np.array_equal(np.sort(order), np.arange(n)):
+        raise RuntimeError("BVH: the leaf order is not a permutation of the primitives")
+    leaves = np.nonzero(meta[:, 1] > 0)[0]
+    counts = meta[leaves, 1].astype(np.int64)
+    first = np.repeat(meta[leaves, 0].astype(np.int64), counts)
+    pos = first + np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts, counts)
+    if not np.array_equal(np.sort(pos), np.arange(n)):
+        raise RuntimeError("BVH: the leaves do not name every primitive exactly once")
+    owner = np.repeat(leaves, counts)
+    pid = order[pos]
+    inside = (lo[pid] >= node_lo[owner] - 1e-4) & (hi[pid] <= node_hi[owner] + 1e-4)
+    if not inside.all():
+        raise RuntimeError(f"BVH: {int((~inside.all(-1)).sum())} primitives outside their "
+                           "leaf's box")
+    return len(leaves)
+
+
+def phase_fallback_trees(tmp, device):
+    """[32] The Python BVH builders (accel/bvh.py's fallback when the
+    native builder cannot be built) on the bench geometry: the native
+    builder is refused in this process (its loader raises the error a
+    failed g++ raises), and make_accel builds the "sah" and "aac" trees
+    in Python; each tree's invariants; the camera rays of one
+    FALLBACK_RES^2 view through each wide tree with K2 (the main path's
+    t-pass, plain twins refused; counted), again with every wave held
+    bit for bit against the plain twin, and against the same rays
+    through the native tree: prim equal on >= FALLBACK_AGREE of the
+    rays, and t bit-equal on every ray (so a prim differs only at an
+    exact tie of t)."""
+    import torch
+    from pbrt_tpu_torch.accel import bvh
+    from pbrt_tpu_torch.core.error import PbrtError
+    from pbrt_tpu_torch.core.geometry import Ray
+    from pbrt_tpu_torch.ops import bvh_cuda
+
+    scene, _ = compile_text(bench_scene_text(FALLBACK_RES), "fallback", tmp, device)
+    geom = scene.geom
+    lo, hi = bvh.prim_bounds(geom)
+    world = (geom.world_lo.cpu().numpy(), geom.world_hi.cpu().numpy())
+    # the native builds, its library loaded by the compile
+    native_s = {m: host_s(lambda: bvh.build_bvh_bounds(lo, hi, m, world))[1]
+                for m in ("sah", "aac")}
+
+    n = FALLBACK_RES * FALLBACK_RES
+    xs = np.linspace(-0.55, 0.55, FALLBACK_RES, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs[::-1], indexing="xy")
+    d = np.stack([gx.ravel(), gy.ravel() + 0.18, np.ones(n, np.float32)], -1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ray = Ray(torch.as_tensor(np.tile([[0.0, 1.2, -4.0]], (n, 1)).astype(np.float32),
+                              device=device),
+              torch.as_tensor(d, device=device), torch.zeros(n, device=device),
+              torch.full((n,), float("inf"), device=device), torch.zeros(n, device=device))
+    with NoPlain():
+        t_nat, p_nat = scene.accel._t_pass(ray, coherent=True)
+
+    def refuse():
+        raise PbrtError("g++ failed building the BVH builder:\n(refused by chip_smoke.py)")
+
+    out = {"rays": n, "k2_launches": 0}
+    for method in ("sah", "aac"):
+        timer = BuildTimer(bvh.build_bvh)
+        with Patched((bvh, "_load_native", refuse), (bvh, "build_bvh", timer)):
+            accel, make_s = host_s(lambda: bvh.make_accel(geom, method))
+        leaves = bvh_invariants(timer.last, lo, hi)
+        bvh_cuda.launches = 0
+        with NoPlain():
+            (t, p), trav_s = host_s(lambda: accel._t_pass(ray, coherent=True))
+        launches = bvh_cuda.launches
+        if launches <= 0:
+            raise RuntimeError(f"[32] {method}: the traversal did not launch K2")
+        out["k2_launches"] += launches
+        rec, t_chk, p_chk = traverse(bvh_cuda, accel.wide, ray.o, ray.d, ray.tmin, ray.tmax, n,
+                                     coherent=True)
+        r = rec.summary()
+        if r["t_bits_differ"]:
+            raise RuntimeError(f"[32] {method}: K2 t bits differ from the plain twin on "
+                               f"{r['t_bits_differ']} rays")
+        compare(f"[32] {method}: the counted traversal vs the checked one", t, p, t_chk, p_chk,
+                bits=True)
+        same = p == p_nat
+        share = float(same.float().mean())
+        t_differ = int((t.view(torch.int32) != t_nat.view(torch.int32)).sum())
+        if share < FALLBACK_AGREE or t_differ:
+            raise RuntimeError(f"[32] {method}: prim agrees with the native tree's on "
+                               f"{share:.6f} of the rays (need {FALLBACK_AGREE}); t bits "
+                               f"differ on {t_differ} rays")
+        hits = int((p >= 0).sum())
+        out[method] = {"python_build_s": timer.seconds[-1], "native_build_s": native_s[method],
+                       "make_accel_s": make_s, "nodes": int(timer.last.n_nodes),
+                       "leaves": leaves, "leaf_blocks": int(accel.wide.n_blocks),
+                       "k2_launches": launches, "traversal_s": trav_s, "hits": hits,
+                       "prim_agree_share": share, "prim_differ_at_ties": int((~same).sum()),
+                       **{k: r[k] for k in ("waves", "pairs", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "max_abs_err")}}
+        log(f"  {method}: Python build {timer.seconds[-1]:.2f} s, {timer.last.n_nodes} nodes, "
+            f"{leaves} leaves (native build {native_s[method]:.3f} s), invariants hold; "
+            f"make_accel {make_s:.2f} s, {accel.wide.n_blocks} leaf blocks; traversal "
+            f"{trav_s:.3f} s, {launches} K2 launches, {hits} hits; checked: {r['waves']} "
+            f"waves, {r['pairs']} pairs, kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+            f"ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), every wave bit-equal; prim "
+            f"as the native tree's on {share:.6f} of {n} rays ({int((~same).sum())} ties), "
+            f"t bit-equal on every ray")
+    return out
+
+
 def run_cli(scene_text, out_name, tmp, extra=()):
     """Write the scene and run it through the CLI entry point -> seconds."""
     from pbrt_tpu_torch import main as cli
@@ -3364,6 +3482,12 @@ def main():
         t0 = time.perf_counter()
         groups = phase_process_groups(tmp, device)
         log(f"  [31] took {time.perf_counter() - t0:.1f} s")
+        log(f"[32] the Python BVH builders on the card's main path: the bench geometry's "
+            f"sah and aac trees with the native builder refused, K2 over "
+            f"{FALLBACK_RES}x{FALLBACK_RES} camera rays")
+        t0 = time.perf_counter()
+        fallback = phase_fallback_trees(tmp, device)
+        log(f"  [32] took {time.perf_counter() - t0:.1f} s")
 
     # K1: every launch of the small render, the goldens, rainbowc, the
     # small textured scene, [17], [18], [24], [25], [26a], [26b] and [29]
@@ -3409,6 +3533,9 @@ def main():
     k2["grad"] = grad["bench"]
     k2["process_group"] = groups["bench_nccl_world1"]
     k2["launches"] += grad["bench"]["k2_launches"] + groups["bench_nccl_world1"]["k2_launches"]
+    # [32]: K2 over the trees of the Python builders
+    k2["fallback_trees"] = fallback
+    k2["launches"] += fallback["k2_launches"]
     log(f"  gradient estimators: {json.dumps(grad['estimators'], default=float)}")
     log(f"  process groups: {json.dumps(groups, default=float)}")
     log(f"  photon legs: {json.dumps(photon['photon_legs'])}")

@@ -6,8 +6,14 @@ own copy of the reference's native C++ builder (csrc/bvh_builder.cpp,
 byte-identical to the reference's, so both packages build the same
 tree), compiled with g++ into the port's build directory, over the
 reference's primitive bounds (triangles, then quadric boxes, each
-unioned with its end-of-shutter bounds in a motion scene). make_accel
-routes each scene as the reference's make_accel does on its TPU:
+unioned with its end-of-shutter bounds in a motion scene). When that
+builder cannot be compiled or loaded, or returns no nodes, the port
+builds with its copy of the reference's pure-Python builders (SAH with
+12 buckets, middle, equal, and AAC over 30-bit Morton codes), whose
+trees are array-identical to the reference's Python trees; that is
+slower by two orders of magnitude on large scenes, so it warns once.
+make_accel routes each scene as the reference's make_accel does on its
+TPU:
 
   - static scenes with at least WIDE_THRESHOLD triangles: the packet
     pipeline (accel/wide_bvh.py collapses the tree into 128-triangle
@@ -32,7 +38,9 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import sys
 import threading
+from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -64,6 +72,8 @@ WALK_CHECK_EVERY = 8    # t_pass_bvh iterations between reads of the stop condit
 walk_stats = {"traversals": 0, "iterations": 0}
 _LOCK = threading.Lock()
 _LIB = None
+_NATIVE_ERROR = None   # why the native builder is unavailable, once known
+_native_warned = False  # the Python builders' warning, once a process
 
 
 class BVH(NamedTuple):
@@ -76,36 +86,55 @@ class BVH(NamedTuple):
     node_meta: np.ndarray  # [N, 3] int32: (second_child|offset, n_prims, axis)
     prim_ids: np.ndarray   # [P] int32 prim ids (leaf order)
 
+    @property
+    def n_nodes(self):
+        return self.node_lo.shape[0]
+
 
 def _load_native():
     """Compile the C++ builder with g++ (the flags of the reference's
-    native loader) and load it with ctypes."""
-    global _LIB
+    native loader) and load it with ctypes. Raises PbrtError when it
+    cannot (no source, no g++, a failed compile or load); the failure is
+    remembered, so g++ runs at most once a process."""
+    global _LIB, _NATIVE_ERROR
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        if not os.path.exists(NATIVE_SRC):
-            raise PbrtError(f"BVH builder source not found: {NATIVE_SRC}")
-        with open(NATIVE_SRC, "rb") as f:
-            h = hashlib.sha256(f.read()).hexdigest()[:16]
-        so = os.path.join(_BUILD_ROOT, f"native-{h}", "libpbrt_native.so")
-        if not os.path.exists(so):
-            os.makedirs(os.path.dirname(so), exist_ok=True)
-            tmp = f"{so}.tmp{os.getpid()}"
-            proc = subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC", NATIVE_SRC, "-o", tmp],
-                capture_output=True, text=True, timeout=300)
-            if proc.returncode != 0:
-                raise PbrtError(f"g++ failed building the BVH builder:\n{proc.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        fp = ctypes.POINTER(ctypes.c_float)
-        ip = ctypes.POINTER(ctypes.c_int32)
-        lib.pbrt_build_bvh.restype = ctypes.c_int
-        lib.pbrt_build_bvh.argtypes = [fp, fp, ctypes.c_int, ctypes.c_int, fp, fp,
-                                       ip, ip, ctypes.c_int]
-        _LIB = lib
-        return lib
+        if _NATIVE_ERROR is not None:
+            raise PbrtError(_NATIVE_ERROR)
+        try:
+            _LIB = _compile_and_load()
+        except (OSError, subprocess.SubprocessError) as e:
+            _NATIVE_ERROR = f"cannot build the BVH builder: {e}"
+        except PbrtError as e:
+            _NATIVE_ERROR = str(e)
+        if _LIB is None:
+            raise PbrtError(_NATIVE_ERROR)
+        return _LIB
+
+
+def _compile_and_load():
+    if not os.path.exists(NATIVE_SRC):
+        raise PbrtError(f"BVH builder source not found: {NATIVE_SRC}")
+    with open(NATIVE_SRC, "rb") as f:
+        h = hashlib.sha256(f.read()).hexdigest()[:16]
+    so = os.path.join(_BUILD_ROOT, f"native-{h}", "libpbrt_native.so")
+    if not os.path.exists(so):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        tmp = f"{so}.tmp{os.getpid()}"
+        proc = subprocess.run(
+            ["g++", "-O3", "-march=native", "-shared", "-fPIC", NATIVE_SRC, "-o", tmp],
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise PbrtError(f"g++ failed building the BVH builder:\n{proc.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    fp = ctypes.POINTER(ctypes.c_float)
+    ip = ctypes.POINTER(ctypes.c_int32)
+    lib.pbrt_build_bvh.restype = ctypes.c_int
+    lib.pbrt_build_bvh.argtypes = [fp, fp, ctypes.c_int, ctypes.c_int, fp, fp,
+                                   ip, ip, ctypes.c_int]
+    return lib
 
 
 def _tri_bounds(v0, e1, e2):
@@ -153,47 +182,333 @@ def prim_bounds(geom: SceneGeom):
 
 
 def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray, split_method: str = "sah",
-              quads=None) -> Optional[BVH]:
+              quads=None, world=None) -> Optional[BVH]:
     """Binary BVH over the triangles (v0, e1, e2) [T, 3] float32, then
     the quadric boxes `quads` = (lo [Q, 3], hi [Q, 3]) if given: prim ids
-    T.. are the quadrics, as in the reference."""
+    T.. are the quadrics, as in the reference. `world` as in
+    build_bvh_bounds."""
     lo, hi = _tri_bounds(v0, e1, e2)
     if quads is not None and len(quads[0]):
         lo = np.concatenate([lo, quads[0]]).astype(np.float32)
         hi = np.concatenate([hi, quads[1]]).astype(np.float32)
-    return build_bvh_bounds(lo, hi, split_method)
+    return build_bvh_bounds(lo, hi, split_method, world)
 
 
-def build_bvh_bounds(lo: np.ndarray, hi: np.ndarray, split_method: str = "sah") -> Optional[BVH]:
-    """Binary BVH over primitive boxes lo/hi [P, 3]. An unknown split
-    method warns and builds SAH (the reference's native builder maps it
-    to SAH)."""
+def build_bvh_bounds(lo: np.ndarray, hi: np.ndarray, split_method: str = "sah",
+                     world=None) -> Optional[BVH]:
+    """Binary BVH over primitive boxes lo/hi [P, 3]: the native builder,
+    else the Python builders (reference build_bvh). `world` = (world_lo,
+    world_hi), the scene's bounds, is AAC's Morton grid in the Python
+    build (default: the union of the boxes). An unknown split method
+    warns and builds SAH (the reference's native builder maps it to
+    SAH)."""
     n = len(lo)
     if n == 0:
         return None
     if split_method not in ("sah", "middle", "equal", "aac"):
         warning(f'BVH split method "{split_method}" unknown; using "sah"')
         split_method = "sah"
-    lib = _load_native()
-    method_id = {"sah": 0, "middle": 1, "equal": 2, "aac": 3}[split_method]
-    max_nodes = max(16, 4 * n)
-    lo_c = np.ascontiguousarray(lo, np.float32)
-    hi_c = np.ascontiguousarray(hi, np.float32)
-    node_lo = np.zeros((max_nodes, 3), np.float32)
-    node_hi = np.zeros((max_nodes, 3), np.float32)
-    meta = np.zeros((max_nodes, 3), np.int32)
-    order = np.zeros(n, np.int32)
-    fp = ctypes.POINTER(ctypes.c_float)
-    ip = ctypes.POINTER(ctypes.c_int32)
-    cnt = lib.pbrt_build_bvh(
-        lo_c.ctypes.data_as(fp), hi_c.ctypes.data_as(fp), n, method_id,
-        node_lo.ctypes.data_as(fp), node_hi.ctypes.data_as(fp),
-        meta.ctypes.data_as(ip), order.ctypes.data_as(ip), max_nodes,
-    )
-    if cnt <= 0:
-        raise PbrtError("native BVH build failed")
-    info(f"BVH[native]: {cnt} nodes over {n} prims ({split_method})")
-    return BVH(node_lo[:cnt], node_hi[:cnt], meta[:cnt], order)
+    lo = np.ascontiguousarray(lo, np.float32)
+    hi = np.ascontiguousarray(hi, np.float32)
+    tree = _native_build(lo, hi, split_method)
+    if tree is not None:
+        return tree
+    if split_method == "aac":
+        wl, wh = world if world is not None else (lo.min(0), hi.max(0))
+        b, order, root = _build_aac(lo, hi, np.asarray(wl), np.asarray(wh))
+        b = _normalize_aac(b, root)
+    else:
+        b, order = _build_topdown(lo, hi, split_method)
+    info(f"BVH: {len(b.lo)} nodes over {n} prims ({split_method})")
+    return BVH(np.stack(b.lo).astype(np.float32), np.stack(b.hi).astype(np.float32),
+               np.asarray(b.meta, np.int32), np.asarray(order, np.int32))
+
+
+def _native_build(lo, hi, split_method) -> Optional[BVH]:
+    """The native builder's tree, or None (after one warning a process
+    that names the failure) when it is unavailable or returns no nodes."""
+    global _native_warned
+    try:
+        lib = _load_native()
+    except PbrtError as e:
+        why = str(e)
+    else:
+        n = len(lo)
+        max_nodes = max(16, 4 * n)
+        node_lo = np.zeros((max_nodes, 3), np.float32)
+        node_hi = np.zeros((max_nodes, 3), np.float32)
+        meta = np.zeros((max_nodes, 3), np.int32)
+        order = np.zeros(n, np.int32)
+        fp = ctypes.POINTER(ctypes.c_float)
+        ip = ctypes.POINTER(ctypes.c_int32)
+        cnt = lib.pbrt_build_bvh(
+            lo.ctypes.data_as(fp), hi.ctypes.data_as(fp), n,
+            {"sah": 0, "middle": 1, "equal": 2, "aac": 3}[split_method],
+            node_lo.ctypes.data_as(fp), node_hi.ctypes.data_as(fp),
+            meta.ctypes.data_as(ip), order.ctypes.data_as(ip), max_nodes,
+        )
+        if cnt > 0:
+            info(f"BVH[native]: {cnt} nodes over {n} prims ({split_method})")
+            return BVH(node_lo[:cnt], node_hi[:cnt], meta[:cnt], order)
+        why = f"the native BVH build returned {cnt} nodes over {n} prims"
+    if not _native_warned:
+        _native_warned = True
+        warning(f"building BVHs with the Python builders, which are much slower on large "
+                f"scenes: {why}")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# The Python builders (reference bvh.py _build_topdown, _build_aac): the
+# same NumPy operations in the same order and dtypes, so the trees are
+# array-identical to the reference's Python trees
+
+def _surface_area(lo, hi):
+    d = np.maximum(hi - lo, 0.0)
+    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 0] * d[..., 2] + d[..., 1] * d[..., 2])
+
+
+class _Builder:
+    """Flattens during build: first child adjacent, second child indexed
+    (reference bvh.cpp flattenBVHTree :559)."""
+
+    def __init__(self):
+        self.lo, self.hi, self.meta = [], [], []
+
+    def add_node(self):
+        self.lo.append(None)
+        self.hi.append(None)
+        self.meta.append(None)
+        return len(self.lo) - 1
+
+    def set_leaf(self, idx, lo, hi, first, count):
+        self.lo[idx], self.hi[idx] = lo, hi
+        self.meta[idx] = (first, count, 0)
+
+    def set_interior(self, idx, lo, hi, second_child, axis):
+        self.lo[idx], self.hi[idx] = lo, hi
+        self.meta[idx] = (second_child, 0, axis)
+
+
+def _deep_recursion(fn, limit: int):
+    """fn() with the recursion limit raised to at least `limit`."""
+    old = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old, limit))
+    try:
+        return fn()
+    finally:
+        sys.setrecursionlimit(old)
+
+
+def _build_topdown(lo, hi, method: str):
+    """SAH (12 buckets) / middle / equal top-down build -> (builder, order)."""
+    n = len(lo)
+    cent = 0.5 * (lo + hi)
+    b = _Builder()
+    order: list = []
+
+    def leaf(node, nlo, nhi, idx_arr):
+        b.set_leaf(node, nlo, nhi, len(order), len(idx_arr))
+        order.extend(idx_arr.tolist())
+        return node
+
+    def halves(idx_arr, c, axis):
+        half = len(idx_arr) // 2
+        part = np.argpartition(c[:, axis], half)
+        return idx_arr[part[:half]], idx_arr[part[half:]]
+
+    def recurse(idx_arr) -> int:
+        node = b.add_node()
+        nlo = lo[idx_arr].min(0)
+        nhi = hi[idx_arr].max(0)
+        if len(idx_arr) <= LEAF_MAX:
+            return leaf(node, nlo, nhi, idx_arr)
+        c = cent[idx_arr]
+        clo, chi = c.min(0), c.max(0)
+        axis = int(np.argmax(chi - clo))
+        if chi[axis] - clo[axis] < 1e-12:
+            return leaf(node, nlo, nhi, idx_arr)
+        if method == "middle":
+            mask = c[:, axis] < 0.5 * (clo[axis] + chi[axis])
+            if mask.all() or not mask.any():
+                left, right = halves(idx_arr, c, axis)
+            else:
+                left, right = idx_arr[mask], idx_arr[~mask]
+        elif method == "equal":
+            left, right = halves(idx_arr, c, axis)
+        else:  # sah, 12 buckets (reference bvh.cpp:476 region)
+            NB = 12
+            t = (c[:, axis] - clo[axis]) / max(chi[axis] - clo[axis], 1e-12)
+            bk = np.minimum((t * NB).astype(np.int32), NB - 1)
+            blo = np.full((NB, 3), np.inf)      # float64, as in the reference
+            bhi = np.full((NB, 3), -np.inf)
+            cnt = np.zeros(NB, np.int64)
+            for bi in range(NB):
+                m = bk == bi
+                if m.any():
+                    cnt[bi] = m.sum()
+                    blo[bi] = lo[idx_arr[m]].min(0)
+                    bhi[bi] = hi[idx_arr[m]].max(0)
+            cost = np.full(NB - 1, np.inf)
+            for split in range(NB - 1):
+                cl = cnt[: split + 1].sum()
+                cr = cnt[split + 1:].sum()
+                if cl == 0 or cr == 0:
+                    continue
+                l_lo = blo[: split + 1].min(0)
+                l_hi = bhi[: split + 1].max(0)
+                r_lo = blo[split + 1:].min(0)
+                r_hi = bhi[split + 1:].max(0)
+                cost[split] = 0.125 + (
+                    cl * _surface_area(l_lo, l_hi) + cr * _surface_area(r_lo, r_hi)
+                ) / max(_surface_area(nlo, nhi), 1e-20)
+            best = int(np.argmin(cost))
+            # always true here (len > LEAF_MAX): the reference's leaf by cost is unreachable
+            mask = bk <= best
+            if mask.all() or not mask.any():
+                left, right = halves(idx_arr, c, axis)
+            else:
+                left, right = idx_arr[mask], idx_arr[~mask]
+        recurse(left)
+        second = recurse(right)
+        b.set_interior(node, nlo, nhi, second, axis)
+        return node
+
+    _deep_recursion(lambda: recurse(np.arange(n)), 10000)
+    return b, order
+
+
+# --- AAC (student mode, reference bvh.cpp:258-389) -------------------------
+
+_AAC_DELTA = 4
+_AAC_ALPHA = 0.3
+_AAC_C = 0.5 * _AAC_DELTA ** 0.7
+
+
+def _aac_f(x: int) -> int:
+    return max(1, int(np.ceil(_AAC_C * x ** _AAC_ALPHA)))
+
+
+def _morton30(cent, world_lo, world_hi):
+    """30-bit Morton codes via magic-bits interleave (bvh.cpp:47-78), in
+    NumPy uint64."""
+    t = (cent - world_lo) / np.maximum(world_hi - world_lo, 1e-12)
+    q = np.clip((t * 1024.0).astype(np.uint64), 0, 1023)
+
+    def spread(x):
+        x = (x | (x << 16)) & np.uint64(0x030000FF)
+        x = (x | (x << 8)) & np.uint64(0x0300F00F)
+        x = (x | (x << 4)) & np.uint64(0x030C30C3)
+        x = (x | (x << 2)) & np.uint64(0x09249249)
+        return x
+
+    return (spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1))
+            | (spread(q[:, 2]) << np.uint64(2)))
+
+
+@dataclass
+class _Cluster:
+    lo: np.ndarray
+    hi: np.ndarray
+    node: int  # builder node index (already emitted subtree), or -1 for leaf prim
+    prim: int  # prim id when a raw leaf
+
+
+def _aac_combine(b: _Builder, order: list, clusters, target: int):
+    """Greedy closest-pair merging down to `target` clusters (reference
+    bvh.cpp CombineClusters :279-389): each step merges the pair of least
+    union surface area, the first in (i, j) order on ties. The
+    reference's double loop, as one array of every pair's area a step
+    (the same float32 operations, so the same picks). Merged interiors
+    name both children explicitly, (-a - 2, -c - 2, 0), for
+    _normalize_aac."""
+    cl = list(clusters)
+    if len(cl) <= target:
+        return cl
+    los = np.stack([c.lo for c in cl])
+    his = np.stack([c.hi for c in cl])
+    while len(cl) > target:
+        k = len(cl)
+        sa = _surface_area(np.minimum(los[:, None], los[None]),
+                           np.maximum(his[:, None], his[None]))
+        # the reference takes a pair i < j only when its area is < the best so far
+        sa = np.where(np.triu(np.ones((k, k), bool), 1) & ~np.isnan(sa), sa, np.inf)
+        i, j = divmod(int(np.argmin(sa)), k)
+        a, c = cl[i], cl[j]
+        node = b.add_node()
+        for child in (a, c):
+            if child.node < 0:
+                leaf = b.add_node()
+                b.set_leaf(leaf, child.lo, child.hi, len(order), 1)
+                order.append(child.prim)
+                child.node = leaf
+        u_lo = np.minimum(a.lo, c.lo)
+        u_hi = np.maximum(a.hi, c.hi)
+        b.lo[node], b.hi[node] = u_lo, u_hi
+        b.meta[node] = (-a.node - 2, -c.node - 2, 0)
+        cl.pop(j)
+        cl[i] = _Cluster(u_lo, u_hi, node, -1)
+        los, his = np.delete(los, j, 0), np.delete(his, j, 0)
+        los[i], his[i] = u_lo, u_hi
+    return cl
+
+
+def _build_aac(lo, hi, world_lo, world_hi):
+    """AAC build over Morton codes in the scene's bounds -> (builder,
+    order, root); the builder holds explicit-children interiors until
+    _normalize_aac."""
+    n = len(lo)
+    codes = _morton30(0.5 * (lo + hi), world_lo, world_hi)
+    sort = np.argsort(codes, kind="stable")
+    codes_s = codes[sort]
+    b = _Builder()
+    order: list = []
+
+    def prims(s, e):
+        return [_Cluster(lo[sort[i]], hi[sort[i]], -1, int(sort[i])) for i in range(s, e)]
+
+    def build_range(s, e, bit) -> list:
+        if e - s <= _AAC_DELTA:
+            return _aac_combine(b, order, prims(s, e), _aac_f(_AAC_DELTA))
+        if bit < 0:
+            return _aac_combine(b, order, prims(s, e), _aac_f(e - s))
+        # binary search for the bit boundary (bvh.cpp:258-277)
+        seg = codes_s[s:e] & (np.uint64(1) << np.uint64(bit))
+        split = s + int(np.searchsorted(seg, np.uint64(1)))
+        if split == s or split == e:
+            return build_range(s, e, bit - 1)
+        left = build_range(s, split, bit - 1)
+        right = build_range(split, e, bit - 1)
+        return _aac_combine(b, order, left + right, _aac_f(e - s))
+
+    root = _deep_recursion(
+        lambda: _aac_combine(b, order, build_range(0, n, 29), 1), 10000)[0]
+    if root.node < 0:  # single-prim scene
+        leaf = b.add_node()
+        b.set_leaf(leaf, root.lo, root.hi, len(order), 1)
+        order.append(root.prim)
+        root.node = leaf
+    return b, order, root.node
+
+
+def _normalize_aac(b: _Builder, root: int) -> _Builder:
+    """Re-emit AAC's explicit-children nodes into the linear
+    first-child-adjacent layout, depth first."""
+    nb = _Builder()
+
+    def emit(i) -> int:
+        me = nb.add_node()
+        nb.lo[me], nb.hi[me] = b.lo[i], b.hi[i]
+        m = b.meta[i]
+        if m[0] <= -2:  # explicit interior
+            emit(-m[0] - 2)
+            nb.meta[me] = (emit(-m[1] - 2), 0, 0)
+        else:  # leaf
+            nb.meta[me] = (m[0], m[1], m[2])
+        return me
+
+    _deep_recursion(lambda: emit(root), 100000)
+    return nb
 
 
 def bvh_to(bvh: BVH, device) -> BVH:
@@ -380,6 +695,7 @@ def make_accel(geom: SceneGeom, split_method: str = "sah", force: str = "") -> B
     reach neither kernel: that is the reference's routing."""
     n_prims = geom.n_tris + geom.n_quads
     dev = geom.tri_v0.device
+    world = (geom.world_lo.cpu().numpy(), geom.world_hi.cpu().numpy())   # AAC's Morton grid
     if (force in ("", "wide") and not geom.has_motion
             and geom.n_tris >= (1 if force == "wide" else WIDE_THRESHOLD)):
         from pbrt_tpu_torch.accel.wide_bvh import build_wide_bvh
@@ -387,11 +703,11 @@ def make_accel(geom: SceneGeom, split_method: str = "sah", force: str = "") -> B
         v0, e1, e2 = (x.cpu().numpy() for x in (geom.tri_v0, geom.tri_e1, geom.tri_e2))
         quads = (quad_bounds(geom.quad_o2w.cpu().numpy(), geom.quad_params.cpu().numpy())
                  if geom.n_quads > 0 else None)
-        narrow = build_bvh(v0, e1, e2, split_method, quads)
+        narrow = build_bvh(v0, e1, e2, split_method, quads, world)
         return BvhScene(geom=geom, wide=build_wide_bvh(narrow, v0, e1, e2, dev))
     if (force == "bvh" or (force != "flat" and n_prims > BVH_THRESHOLD)) and n_prims > 0:
         return BvhScene(geom=geom, bvh=bvh_to(build_bvh_bounds(*prim_bounds(geom),
-                                                               split_method), dev))
+                                                               split_method, world), dev))
     if geom.n_tris == 0 or geom.has_motion:
         return BvhScene(geom=geom)
     from pbrt_tpu_torch.ops.intersect_cuda import TriSoA

@@ -13,6 +13,9 @@ Port of pbrt_tpu/accel/intersect.py. Two phases:
   phase 2 (reconstruct): gather the winning primitive's packed row per
   ray and recompute the differential geometry (p, ng, ns, uv, dpdu).
 
+`intersect` / `intersect_p` run both phases by exhaustion (t_pass_all),
+as the reference's free functions of the same names do.
+
 Quadrics (sphere/cylinder/disk/cone/paraboloid/hyperboloid) are solved
 analytically in object space with pbrt's partial ranges (zmin/zmax/
 phimax, disk innerradius), both roots checked (reference
@@ -675,3 +678,15 @@ def reconstruct(geom: SceneGeom, ray: Ray, t, prim) -> Hit:
         light=torch.where(valid, light, -1),
         prim=torch.where(valid, prim, -1),
     )
+
+
+def intersect(geom: SceneGeom, ray: Ray) -> Hit:
+    """Closest hit by exhaustion (t_pass_all, then reconstruct)."""
+    t, prim = t_pass_all(geom, ray)
+    return reconstruct(geom, ray, t, prim)
+
+
+def intersect_p(geom: SceneGeom, ray: Ray) -> torch.Tensor:
+    """Occlusion query: any hit in (tmin, tmax)? -> [R] bool."""
+    _, prim = t_pass_all(geom, ray)
+    return prim >= 0

@@ -1,12 +1,15 @@
 """Monte Carlo sampling substrate, vectorized over wavefront batches.
 
-Port of the parts of pbrt_tpu/core/sampling.py the ported paths use:
-Distribution1D (light pick) and Distribution2D (environment-map
-importance), the sphere, cone, concentric disk and cosine hemisphere
-warps, triangle sampling, the power heuristic, the Henyey-Greenstein
-phase function, the base-2 low-discrepancy points and the Halton
-radical inverse. uint32 arithmetic is carried in int64 tensors masked
-to 32 bits after every step, so the bit streams equal the JAX package's.
+Port of pbrt_tpu/core/sampling.py: Distribution1D (light pick) and
+Distribution2D (environment-map importance), the hemisphere, sphere,
+cone, concentric disk and cosine hemisphere warps, triangle sampling,
+the phase functions and Henyey-Greenstein sampling, the balance and
+power heuristics, the base-2 low-discrepancy points and (0,2)-sequence,
+the Halton radical inverse, and the stratified and Latin-hypercube
+patterns (on the port's threefry keys, core/threefry.py, so they equal
+the JAX package's jax.random draws). uint32 arithmetic is carried in
+int64 tensors masked to 32 bits after every step, so the bit streams
+equal the JAX package's.
 """
 from __future__ import annotations
 
@@ -15,6 +18,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from pbrt_tpu_torch.core import threefry
+from pbrt_tpu_torch.core.geometry import coordinate_system
 
 INV_PI = 1.0 / math.pi
 INV_TWOPI = 1.0 / (2.0 * math.pi)
@@ -160,6 +166,13 @@ def f32_bits(x):
 # ---------------------------------------------------------------------------
 # Shape sampling (reference montecarlo.h:117-141 and .cpp)
 
+def uniform_sample_hemisphere(u1, u2):
+    z = u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
 def uniform_sample_sphere(u1, u2):
     z = 1.0 - 2.0 * u1
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
@@ -205,6 +218,10 @@ def cosine_sample_hemisphere(u1, u2):
     return torch.stack([x, y_, z], -1)
 
 
+def cosine_hemisphere_pdf(cos_theta):
+    return cos_theta * INV_PI
+
+
 def uniform_sample_triangle(u1, u2):
     su1 = torch.sqrt(u1)
     return 1.0 - su1, u2 * su1  # barycentric (b0, b1)
@@ -213,14 +230,37 @@ def uniform_sample_triangle(u1, u2):
 # ---------------------------------------------------------------------------
 # MIS heuristics (reference montecarlo.h:253-265)
 
+def balance_heuristic(nf, f_pdf, ng, g_pdf):
+    return (nf * f_pdf) / torch.clamp(nf * f_pdf + ng * g_pdf, min=1e-30)
+
+
 def power_heuristic(nf, f_pdf, ng, g_pdf):
     f = nf * f_pdf
     g = ng * g_pdf
     return (f * f) / torch.clamp(f * f + g * g, min=1e-30)
 
 
+# ---------------------------------------------------------------------------
+# Phase functions (reference core/volume.h:47-52) of the cosine between
+# unit w and wi
+
+def phase_isotropic():
+    return INV_FOURPI
+
+
+def phase_rayleigh(cos_t):
+    return 3.0 / (16.0 * math.pi) * (1.0 + cos_t * cos_t)
+
+
 def phase_mie_hazy(cos_t):
     return (0.5 + 4.5 * ((1.0 + cos_t) / 2.0) ** 8) * INV_FOURPI
+
+
+def phase_mie_murky(cos_t):
+    x = (1.0 + cos_t) / 2.0
+    for _ in range(5):   # x ** 32 by squaring, as XLA's integer power rounds it
+        x = x * x
+    return (0.5 + 16.5 * x) * INV_FOURPI
 
 
 def phase_hg(cos_t, g):
@@ -229,6 +269,28 @@ def phase_hg(cos_t, g):
     denom = 1.0 + g2 + 2.0 * g * cos_t
     return INV_FOURPI * (1.0 - g2) / torch.clamp(
         denom * torch.sqrt(torch.clamp(denom, min=1e-12)), min=1e-12)
+
+
+def phase_schlick(cos_t, g):
+    k = 1.55 * g - 0.55 * g * g * g
+    kc = 1.0 + k * cos_t
+    return INV_FOURPI * (1.0 - k * k) / torch.clamp(kc * kc, min=1e-12)
+
+
+def sample_hg(w, u1, u2, g):
+    """Sample wi from the HG phase around unit w; its pdf is
+    phase_hg(w . wi, g) (reference core/montecarlo.h SampleHG)."""
+    g = torch.broadcast_to(torch.as_tensor(g, dtype=torch.float32, device=u1.device), u1.shape)
+    iso = torch.abs(g) < 1e-3
+    safe_g = torch.where(iso, torch.ones((), device=u1.device), g)
+    sqr = (1.0 - g * g) / torch.clamp(1.0 - g + 2.0 * g * u1, min=1e-8)
+    cost = torch.where(iso, 1.0 - 2.0 * u1, (1.0 + g * g - sqr * sqr) / (2.0 * safe_g))
+    cost = torch.clamp(cost, -1.0, 1.0)
+    sint = torch.sqrt(torch.clamp(1.0 - cost * cost, min=0.0))
+    phi = 2.0 * math.pi * u2
+    v1, v2 = coordinate_system(w)
+    return ((sint * torch.cos(phi))[..., None] * v1 + (sint * torch.sin(phi))[..., None] * v2
+            + cost[..., None] * w)
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +335,11 @@ def sobol2(n, scramble):
     return u32_to_unit(result)
 
 
+def sample02(n, scramble_xy):
+    """(0,2)-sequence sample n with the 2D scramble [..., 2] -> (x, y)."""
+    return van_der_corput(n, scramble_xy[..., 0]), sobol2(n, scramble_xy[..., 1])
+
+
 # Halton: radical inverse in the first 32 prime bases (montecarlo.h:221)
 PRIMES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59, 61, 67, 71,
           73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127, 131)
@@ -300,3 +367,33 @@ def radical_inverse(n, base: int):
 def halton_nd(n, dim: int):
     """First `dim` Halton dimensions of index batch n -> [..., dim]."""
     return torch.stack([radical_inverse(n, PRIMES[d]) for d in range(dim)], -1)
+
+
+# ---------------------------------------------------------------------------
+# Pixel sample patterns, on threefry keys (core/threefry.py)
+
+def stratified_2d(key, nx: int, ny: int, jitter: bool = True, *, device):
+    """[nx*ny, 2] stratified samples, jittered by threefry.uniform."""
+    ij = torch.stack(torch.meshgrid(torch.arange(nx, device=device),
+                                    torch.arange(ny, device=device), indexing="ij"),
+                     -1).reshape(-1, 2)
+    u = (threefry.uniform(key, (nx * ny, 2), device) if jitter
+         else torch.full((nx * ny, 2), 0.5, device=device))
+    return (ij + u) / torch.tensor([nx, ny], dtype=torch.float32, device=device)
+
+
+def stratified_1d(key, n: int, jitter: bool = True, *, device):
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    u = threefry.uniform(key, (n,), device) if jitter else torch.full((n,), 0.5, device=device)
+    return (i + u) / n
+
+
+def latin_hypercube(key, n: int, dim: int, *, device):
+    """[n, dim] Latin-hypercube samples: jittered strata, each dimension
+    under its own threefry.permutation."""
+    k1, k2 = threefry.split(key)
+    u = threefry.uniform(k1, (n, dim), device)
+    samples = (torch.arange(n, device=device)[:, None] + u) / n
+    perms = torch.stack([threefry.permutation(threefry.fold_in(k2, d), n, device)
+                         for d in range(dim)], 1)
+    return torch.gather(samples, 0, perms)

@@ -191,6 +191,9 @@ def from_sampled(lambdas, values) -> np.ndarray:
     return out.astype(np.float32)
 
 
+def constant(v, shape=(), *, device):
+    return torch.full(tuple(shape) + (N_BINS,), v, dtype=torch.float32, device=device)
+
 
 def blackbody(temp_k: float) -> np.ndarray:
     """Planck blackbody SPD binned (host), normalized to max 1."""
@@ -200,9 +203,20 @@ def blackbody(temp_k: float) -> np.ndarray:
     return (le / le.max()).astype(np.float32)
 
 
-
 # ---------------------------------------------------------------------------
 # Student dispersion extensions, wavefront form
+
+def intensity_at(s, lam):
+    """Linear interpolation of the bin values at wavelength lam on the
+    reference's (n - 1) grid (spectrum.h:281-291)."""
+    delta = (LAMBDA_END - LAMBDA_START) / (N_BINS - 1)
+    iw = (lam - LAMBDA_START) / delta
+    i0 = torch.clamp(torch.floor(iw).to(torch.int64), 0, N_BINS - 2)
+    t = iw - i0
+    v0 = torch.gather(s, -1, i0[..., None])[..., 0]
+    v1 = torch.gather(s, -1, (i0 + 1)[..., None])[..., 0]
+    return (1.0 - t) * v0 + t * v1
+
 
 def band_filter(s, lam):
     """2-bin linear band-pass at lam (reference spectrum.h filter()).

@@ -1,15 +1,17 @@
 """Counter-based random numbers of the metropolis renderer.
 
 The port's copy of what `jax.random` computes for the JAX package's
-metropolis renderer, in the threefry2x32 implementation with
-`jax_threefry_partitionable = True` (the default of JAX 0.5 and later):
-`prng_key`, `split`, `fold_in`, float32 `uniform` and `choice` with
-probabilities. The draws are bit-identical to `jax.random`'s.
+metropolis renderer and its stratified and Latin-hypercube patterns, in
+the threefry2x32 implementation with `jax_threefry_partitionable = True`
+(the default of JAX 0.5 and later): `prng_key`, `split`, `fold_in`,
+32-bit `bits32`, float32 `uniform`, `choice` with probabilities and
+`permutation`. The draws are bit-identical to `jax.random`'s.
 
 A key is a pair of Python ints (two uint32 words); keys are derived on
-the host, and only the bulk draws (`uniform`, `choice`) run on the
-given device. uint32 arithmetic is carried in int64 tensors (or Python
-ints) masked to 32 bits after every step, as in core/sampling.py.
+the host, and only the bulk draws (`bits32`, `uniform`, `choice`,
+`permutation`) run on the given device. uint32 arithmetic is carried in
+int64 tensors (or Python ints) masked to 32 bits after every step, as in
+core/sampling.py.
 """
 from __future__ import annotations
 
@@ -58,15 +60,33 @@ def fold_in(key: Key, data: int) -> Key:
     return threefry2x32(key[0], key[1], 0, int(data) & M32)
 
 
-def uniform(key: Key, shape, device) -> torch.Tensor:
-    """jax.random.uniform(key, shape) in float32, in [0, 1): each
-    element's 32 random bits are the two words of the block of the
-    counters (flat index >> 32, flat index & M32), xored; their top 23
-    make the mantissa of a float in [1, 2), minus 1."""
+def bits32(key: Key, shape, device) -> torch.Tensor:
+    """jax.random.bits(key, shape) for 32 bits, as int64 holding uint32:
+    each element's bits are the two words of the block of the counters
+    (flat index >> 32, flat index & M32), xored."""
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
     a, b = threefry2x32(key[0], key[1], idx >> 32, idx & M32)
-    f = (((a ^ b) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp(f, min=0.0).reshape(tuple(shape))
+    return (a ^ b).reshape(tuple(shape))
+
+
+def uniform(key: Key, shape, device) -> torch.Tensor:
+    """jax.random.uniform(key, shape) in float32, in [0, 1): the top 23
+    of each element's 32 bits (bits32) make the mantissa of a float in
+    [1, 2), minus 1."""
+    f = ((bits32(key, shape, device) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return torch.clamp(f - 1.0, min=0.0)
+
+
+def permutation(key: Key, n: int, device) -> torch.Tensor:
+    """jax.random.permutation(key, n): arange(n) shuffled by rounds of a
+    stable sort keyed by fresh 32-bit draws (each round splits the key
+    and draws from the second half), ceil(3 ln n / ln(2^32 - 1)) rounds,
+    as jax.random's _shuffle. -> int64 [n]."""
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(math.ceil(3 * math.log(max(1, n)) / math.log(M32))):
+        key, sub = split(key)
+        x = x[torch.sort(bits32(sub, (n,), device), stable=True).indices]
+    return x
 
 
 def cumsum_f32(x: torch.Tensor) -> torch.Tensor:

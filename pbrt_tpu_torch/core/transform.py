@@ -31,6 +31,14 @@ def _apply33(m, v):
          m[..., 2, 0] * x + m[..., 2, 1] * y + m[..., 2, 2] * z], v)
 
 
+def xform_point(m, p):
+    """Apply [..., 4, 4] matrix to point(s) [..., 3] (w-divide)."""
+    r = _apply33(m, p) + m[..., :3, 3]
+    w = (m[..., 3, 0] * p[..., 0] + m[..., 3, 1] * p[..., 1]
+         + m[..., 3, 2] * p[..., 2] + m[..., 3, 3])
+    return r / w[..., None]
+
+
 def xform_point_affine(m, p):
     """Apply assuming bottom row is [0,0,0,1] (no w-divide)."""
     return _apply33(m, p) + m[..., :3, 3]
@@ -70,14 +78,36 @@ class Transform:
     def __mul__(self, other: "Transform") -> "Transform":
         return Transform(self.m @ other.m, other.m_inv @ self.m_inv)
 
+    def __call__(self, p):
+        return xform_point(self.m, np.asarray(p, np.float64))
+
     def vector(self, v):
         return xform_vector(self.m, np.asarray(v, np.float64))
+
+    def normal(self, n):
+        return xform_normal(self.m_inv, np.asarray(n, np.float64))
+
+    def is_identity(self) -> bool:
+        return np.allclose(self.m, np.eye(4))
 
     def swaps_handedness(self) -> bool:
         return float(np.linalg.det(self.m[:3, :3])) < 0.0
 
+    def has_scale(self) -> bool:
+        for i in range(3):
+            la2 = float(np.sum(self.m[:3, i] ** 2))
+            if la2 < 0.999 or la2 > 1.001:
+                return True
+        return False
+
     def __repr__(self):
         return f"Transform({self.m.tolist()})"
+
+    def __eq__(self, other):
+        return isinstance(other, Transform) and np.array_equal(self.m, other.m)
+
+    def __hash__(self):
+        return hash(self.m.tobytes())
 
     # -- constructors (reference core/transform.cpp) --
 
@@ -95,6 +125,18 @@ class Transform:
         m = np.diag([x, y, z, 1.0]).astype(np.float64)
         mi = np.diag([1.0 / x, 1.0 / y, 1.0 / z, 1.0])
         return Transform(m, mi)
+
+    @staticmethod
+    def rotate_x(deg) -> "Transform":
+        return Transform.rotate(deg, [1.0, 0.0, 0.0])
+
+    @staticmethod
+    def rotate_y(deg) -> "Transform":
+        return Transform.rotate(deg, [0.0, 1.0, 0.0])
+
+    @staticmethod
+    def rotate_z(deg) -> "Transform":
+        return Transform.rotate(deg, [0.0, 0.0, 1.0])
 
     @staticmethod
     def rotate(deg, axis) -> "Transform":

@@ -187,6 +187,20 @@ def li_path(scene, ray: Ray, pixel, sidx, max_depth: int = 5, seed: int = 0,
     return _li_path_impl(scene, ray, u_fn, max_depth, rr_start, transmittance_fn)
 
 
+def li_path_psamples(scene, ray: Ray, u, max_depth: int = 5, transmittance_fn=None):
+    """Path radiance driven by an explicit primary-sample vector u [N, D]
+    (Kelemen MLT, reference renderers/metropolis.cpp MLTSample: the
+    psample stream is the path): 10 dims a bounce, the last dim reused
+    past the end; Russian roulette off, so the path is a deterministic
+    function of u."""
+    DPB = 10
+
+    def u_fn(depth, dim):
+        return u[:, min(depth * DPB + (dim % DPB), u.shape[1] - 1)]
+
+    return _li_path_impl(scene, ray, u_fn, max_depth, max_depth + 1, transmittance_fn)
+
+
 def _li_path_impl(scene, ray: Ray, u_fn, max_depth: int, rr_start: int, transmittance_fn):
     from pbrt_tpu_torch.scene.compile import eval_bsdf_params
 

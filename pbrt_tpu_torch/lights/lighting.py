@@ -89,6 +89,10 @@ class LightsT(NamedTuple):
     al_cdf: torch.Tensor     # [AT] per-light prefix CDF over triangle area
     envs: tuple = ()         # EnvMaps of the image-driven lights
 
+    @property
+    def n_lights(self):
+        return self.kind.shape[0]
+
 
 class LightSample(NamedTuple):
     L: torch.Tensor          # [H, S] incident radiance (before visibility)

@@ -115,6 +115,11 @@ def _render(args, device: str, write: bool) -> int:
             except PbrtError as e:
                 print(f"pbrt_tpu_torch: {fn}: {e}", file=sys.stderr)
                 return 1
+        try:
+            api.pbrt_cleanup()   # a scene left inside its world block fails here
+        except PbrtError as e:
+            print(f"pbrt_tpu_torch: {e}", file=sys.stderr)
+            return 1
     finally:
         api._state.__init__()
     return 0

@@ -140,8 +140,11 @@ def build_photon_map_from(st: MapStructure, pos, alpha, wi, device) -> PhotonMap
 
 
 def build_photon_map(pos, alpha, wi, cell_size: float, target_k: int = 0,
-                     device="cpu") -> Optional[PhotonMap]:
-    """Host structure + payload in one step."""
+                     device=None) -> Optional[PhotonMap]:
+    """Host structure + payload in one step, on `device` (default: pos's
+    device for a tensor, the card for a NumPy array)."""
+    if device is None:
+        device = pos.device if isinstance(pos, torch.Tensor) else "cuda"
     pos_np = pos.cpu().numpy() if isinstance(pos, torch.Tensor) else np.asarray(pos)
     st = photon_map_structure(pos_np, cell_size, target_k)
     if st is None:
@@ -388,7 +391,9 @@ class RadianceMap(NamedTuple):
     count: int
 
 
-def build_radiance_map(pos, lo_rad, n, cell_size: float, device="cpu") -> Optional[RadianceMap]:
+def build_radiance_map(pos, lo_rad, n, cell_size: float,
+                       device=None) -> Optional[RadianceMap]:
+    """The radiance photons' map, on `device` as in build_photon_map."""
     base = build_photon_map(pos, lo_rad, n, cell_size, device=device)
     if base is None:
         return None

@@ -282,3 +282,7 @@ def rainbow_reflection(spectrum_in, w, wi):
                                                                  device=cos_t.device), zero))
     filtered = spec.band_filter(spectrum_in, lam)
     return intensity[..., None] * (0.08 * spectrum_in + rainbow_i[..., None] * filtered)
+
+
+def has_rainbow(records: List[VolumeRecord]) -> bool:
+    return any(r.kind == "rainbow" for r in records)

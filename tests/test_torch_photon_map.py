@@ -76,7 +76,7 @@ def maps():
     pos, alpha, wi, centres = photons()
     q, n = queries(pos, centres)
     jm = j_map.build_photon_map(pos, alpha, wi, 0.05, target_k=60)
-    tm = t_map.build_photon_map(pos, alpha, wi, 0.05, target_k=60)
+    tm = t_map.build_photon_map(pos, alpha, wi, 0.05, target_k=60, device="cpu")
     return pos, alpha, wi, q, n, jm, tm
 
 
@@ -169,10 +169,31 @@ def test_radiance_lookup_matches_jax(maps):
 
     pos, alpha, wi, q, n, _, _ = maps
     jr = j_map.build_radiance_map(pos, alpha, wi, 0.1)
-    tr = t_map.build_radiance_map(pos, alpha, wi, 0.1)
+    tr = t_map.build_radiance_map(pos, alpha, wi, 0.1, device="cpu")
     lo_j, f_j = (np.asarray(x) for x in j_map.radiance_lookup(jr, jnp.asarray(q), jnp.asarray(n)))
     lo_t, f_t = (x.numpy() for x in t_map.radiance_lookup(tr, torch.as_tensor(q),
                                                           torch.as_tensor(n)))
     np.testing.assert_array_equal(f_t, f_j)
     np.testing.assert_array_equal(lo_t, lo_j)
     assert f_j.mean() > 0.5 and not f_j.all()
+
+
+def test_maps_default_to_their_inputs_device(maps, monkeypatch):
+    """Without a device, a tensor input's map stays on that tensor's
+    device, and a NumPy input's map goes to the card (the port's
+    default), for the photon and the radiance map alike."""
+    pos, alpha, wi = maps[:3]
+    tm = t_map.build_photon_map(torch.as_tensor(pos), torch.as_tensor(alpha),
+                                torch.as_tensor(wi), 0.05, target_k=60)
+    assert tm.pos.device == tm.alpha.device == tm.cell_start.device == torch.device("cpu")
+    np.testing.assert_array_equal(tm.alpha.numpy(), maps[6].alpha.numpy())
+    tr = t_map.build_radiance_map(torch.as_tensor(pos), torch.as_tensor(alpha),
+                                  torch.as_tensor(wi), 0.1)
+    assert tr.pos.device == tr.lo.device == torch.device("cpu")
+    asked = []
+    monkeypatch.setattr(t_map, "build_photon_map_from",
+                        lambda st, p, a, w, device: asked.append(device))
+    t_map.build_photon_map(pos, alpha, wi, 0.05)
+    t_map.build_radiance_map(pos, alpha, wi, 0.1)
+    t_map.build_photon_map(pos, alpha, wi, 0.05, device="cpu")
+    assert asked == ["cuda", "cuda", "cpu"]

@@ -318,3 +318,34 @@ def test_cli_renders_on_cpu(tmp_path):
                         "--outfile", str(out), str(path)]) == 0
     img = read_image(str(out))
     assert img.shape == (8, 8, 3) and np.isfinite(img).all() and img.mean() > 0
+
+
+def test_cli_fails_on_a_scene_left_in_its_world_block(tmp_path, capsys):
+    """As the JAX CLI, which closes with pbrtCleanup: a scene with
+    WorldBegin but no WorldEnd exits 1 with the reference's message and
+    writes no image; the complete scene still exits 0 with its image."""
+    from pbrt_tpu.core.error import PbrtError as JPbrtError
+    from pbrt_tpu import main as j_main
+    from pbrt_tpu_torch import main as t_main
+
+    text = scene_text(res=8, spp=1, depth=1)
+    path = tmp_path / "unfinished.pbrt"
+    path.write_text(text.replace("WorldEnd\n", ""))
+    out = tmp_path / "out.pfm"
+    msg = "pbrtCleanup() called while inside world block."
+    try:
+        with pytest.raises(JPbrtError, match=msg.replace("(", r"\(").replace(")", r"\)")):
+            j_main.main(["--quiet", "--outfile", str(tmp_path / "j.pfm"), str(path)])
+    finally:
+        j_api._state.__init__()   # the JAX CLI leaves its api state in the world block
+    capsys.readouterr()
+    assert t_main.main(["--device", "cpu", "--quiet", "--outfile", str(out), str(path)]) == 1
+    assert capsys.readouterr().err.strip() == f"pbrt_tpu_torch: {msg}"
+    assert not out.exists()
+    path.write_text(text)
+    assert t_main.main(["--device", "cpu", "--quiet", "--tile-samples", "64",
+                        "--outfile", str(out), str(path)]) == 0
+    assert out.exists()
+    # the state is reset after the failure too: a second scene renders in this process
+    assert t_main.main(["--device", "cpu", "--quiet", "--tile-samples", "64",
+                        "--outfile", str(out), str(path)]) == 0
