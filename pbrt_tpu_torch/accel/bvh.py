@@ -46,6 +46,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core.error import PbrtError, info, warning
 from pbrt_tpu_torch.core.geometry import Ray
 from pbrt_tpu_torch.core.transform import xform_point_affine, xform_vector
@@ -599,8 +600,11 @@ def t_pass_bvh(bvh: BVH, geom: SceneGeom, ray, any_hit: bool = False):
 
     n = 0
     while True:
-        if n % WALK_CHECK_EVERY == 0 and not bool((~stopped) & (sp > 0).any()):
-            break
+        if n % WALK_CHECK_EVERY == 0:
+            with probes.scope("sync/walk_stop"):
+                going = bool((~stopped) & (sp > 0).any())
+            if not going:
+                break
         n += 1
         has = (sp > 0) & ~stopped
         iters = iters + has.any()
@@ -639,7 +643,8 @@ def t_pass_bvh(bvh: BVH, geom: SceneGeom, ray, any_hit: bool = False):
         if any_hit:
             stopped = stopped | torch.all((prim_best >= 0) | (sp == 0))
     walk_stats["traversals"] += 1
-    walk_stats["iterations"] += int(iters)
+    with probes.scope("sync/walk_iters"):
+        walk_stats["iterations"] += int(iters)
     return torch.where(prim_best >= 0, t_best, big), prim_best
 
 
@@ -703,11 +708,15 @@ def make_accel(geom: SceneGeom, split_method: str = "sah", force: str = "") -> B
         v0, e1, e2 = (x.cpu().numpy() for x in (geom.tri_v0, geom.tri_e1, geom.tri_e2))
         quads = (quad_bounds(geom.quad_o2w.cpu().numpy(), geom.quad_params.cpu().numpy())
                  if geom.n_quads > 0 else None)
-        narrow = build_bvh(v0, e1, e2, split_method, quads, world)
-        return BvhScene(geom=geom, wide=build_wide_bvh(narrow, v0, e1, e2, dev))
+        with probes.scope("scene/bvh_build"):
+            narrow = build_bvh(v0, e1, e2, split_method, quads, world)
+        with probes.scope("scene/wide_bvh"):
+            wide = build_wide_bvh(narrow, v0, e1, e2, dev)
+        return BvhScene(geom=geom, wide=wide)
     if (force == "bvh" or (force != "flat" and n_prims > BVH_THRESHOLD)) and n_prims > 0:
-        return BvhScene(geom=geom, bvh=bvh_to(build_bvh_bounds(*prim_bounds(geom),
-                                                               split_method, world), dev))
+        with probes.scope("scene/bvh_build"):
+            tree = build_bvh_bounds(*prim_bounds(geom), split_method, world)
+        return BvhScene(geom=geom, bvh=bvh_to(tree, dev))
     if geom.n_tris == 0 or geom.has_motion:
         return BvhScene(geom=geom)
     from pbrt_tpu_torch.ops.intersect_cuda import TriSoA

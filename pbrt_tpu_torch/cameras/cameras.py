@@ -16,6 +16,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core.error import warning
 from pbrt_tpu_torch.core.geometry import Ray, normalize
 from pbrt_tpu_torch.core.sampling import concentric_sample_disk
@@ -49,8 +50,11 @@ class Camera:
             return realistic_generate_rays(self, px, py, u_lens1, u_lens2, u_time)
         n = px.shape[0]
         dev = px.device
-        r2c = torch.as_tensor(self.raster_to_camera, dtype=torch.float32, device=dev)
-        c2w = torch.as_tensor(self.cam_to_world, dtype=torch.float32, device=dev)
+        # each matrix's copy to the card waits on it
+        with probes.scope("sync/camera_xform"):
+            r2c = torch.as_tensor(self.raster_to_camera, dtype=torch.float32, device=dev)
+        with probes.scope("sync/camera_xform"):
+            c2w = torch.as_tensor(self.cam_to_world, dtype=torch.float32, device=dev)
         p_ras = torch.stack([px, py, torch.zeros_like(px)], -1)
         time = self.shutter_open + u_time * (self.shutter_close - self.shutter_open)
 

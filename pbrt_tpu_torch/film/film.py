@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.error import info, warning
 from pbrt_tpu_torch.scene.paramset import ParamSet
@@ -219,13 +220,18 @@ def splat(film: Film, state: FilmState, px, py, L_spec) -> FilmState:
     return state
 
 
+def _to_host(a) -> np.ndarray:
+    """One accumulator on the host: a copy that waits on the card."""
+    with probes.scope("sync/film"):
+        return a.cpu().numpy()
+
+
 def to_rgb(film: Film, state: FilmState, splat_scale: float = 1.0) -> np.ndarray:
     """Resolve accumulators to RGB (reference film/image.cpp:155-218
     WriteImage: XYZ->RGB, weight normalize, then the splats times
     splat_scale added)."""
-    xyz = state.xyz.cpu().numpy().astype(np.float64)
-    wsum = state.weight.cpu().numpy().astype(np.float64)
-    splat_xyz = state.splat.cpu().numpy().astype(np.float64)
+    xyz, wsum, splat_xyz = (_to_host(a).astype(np.float64)
+                            for a in (state.xyz, state.weight, state.splat))
     rgb = xyz @ np.asarray(spec.XYZ_TO_RGB).T
     rgb = np.where(wsum[..., None] > 0.0, rgb / np.maximum(wsum[..., None], 1e-20), 0.0)
     rgb = np.maximum(rgb, 0.0)

@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.sampling import phase_hg
 from pbrt_tpu_torch.core.transform import xform_point_affine
@@ -80,45 +81,46 @@ def li_photonvolume(scene, ctx, ray, t_surf, pixel, sidx, n_steps: int,
     tr = ones
     active = torch.ones((N,), dtype=torch.bool, device=dev)
     for i in range(n_steps):
-        t = t0 + (i + u0) * dt
-        p = ray.o + t[..., None] * d
-        sa, ss, le, g = sigma_at(vol, p)
-        # the step's optical depth over [t - dt, t] (reference tauRay)
-        tr = torch.where(active[..., None], torch.exp(-(sa + ss) * dt[..., None]), tr)
-        in_rainbow = rainbow_mask(vol, p)
+        with probes.scope("volume/march_step"):
+            t = t0 + (i + u0) * dt
+            p = ray.o + t[..., None] * d
+            sa, ss, le, g = sigma_at(vol, p)
+            # the step's optical depth over [t - dt, t] (reference tauRay)
+            tr = torch.where(active[..., None], torch.exp(-(sa + ss) * dt[..., None]), tr)
+            in_rainbow = rainbow_mask(vol, p)
 
-        # single scattering from one light (:177-203)
-        Ld = torch.zeros((N, S), device=dev)
-        if scene.n_lights > 0:
-            light_idx, pmf = scene.light_dist.sample_discrete(iu(pixel, sidx, i, 61, seed))
-            ls = sample_light(scene.lights, light_idx, p, iu(pixel, sidx, i, 62, seed),
-                              iu(pixel, sidx, i, 63, seed))
-            occ = _shadow(scene, p, ls.wi, ls.dist, hit & active)
-            tr_light = transmittance(vol, p, ls.wi, ls.dist, max(4, n_steps // 4),
-                                     iu(pixel, sidx, i, 64, seed))
-            Ld_raw = ls.L * tr_light / torch.clamp(ls.pdf * pmf, min=1e-12)[..., None]
-            # rainbow: the angle -> wavelength transfer replaces the
-            # phase-weighted term (:196-198); wo = -d, toward the eye
-            Ld = torch.where(in_rainbow[..., None], rainbow_reflection(Ld_raw, d, ls.wi),
-                             Ld_raw * vol_phase(g, d, ls.wi)[..., None])
-            Ld = torch.where((hit & ~occ & active)[..., None], Ld, zero)
+            # single scattering from one light (:177-203)
+            Ld = torch.zeros((N, S), device=dev)
+            if scene.n_lights > 0:
+                light_idx, pmf = scene.light_dist.sample_discrete(iu(pixel, sidx, i, 61, seed))
+                ls = sample_light(scene.lights, light_idx, p, iu(pixel, sidx, i, 62, seed),
+                                  iu(pixel, sidx, i, 63, seed))
+                occ = _shadow(scene, p, ls.wi, ls.dist, hit & active)
+                tr_light = transmittance(vol, p, ls.wi, ls.dist, max(4, n_steps // 4),
+                                         iu(pixel, sidx, i, 64, seed))
+                Ld_raw = ls.L * tr_light / torch.clamp(ls.pdf * pmf, min=1e-12)[..., None]
+                # rainbow: the angle -> wavelength transfer replaces the
+                # phase-weighted term (:196-198); wo = -d, toward the eye
+                Ld = torch.where(in_rainbow[..., None], rainbow_reflection(Ld_raw, d, ls.wi),
+                                 Ld_raw * vol_phase(g, d, ls.wi)[..., None])
+                Ld = torch.where((hit & ~occ & active)[..., None], Ld, zero)
 
-        # multiple scattering from the volume photon map (:205-213)
-        want = hit & active & ~in_rainbow
-        Lii, enough = lphoton_volume(ctx.volume, p, d, g, ctx.vol_n_used, ctx.vol_max_dist2,
-                                     mask=want)
-        Lii = Lii / torch.clamp(torch.sum(ss, -1) / S, min=1e-9)[..., None]
-        albedo = ss / torch.clamp(sa + ss, min=1e-9)
-        Lii_term = torch.where((enough & want)[..., None], albedo * Lii, zero)
+            # multiple scattering from the volume photon map (:205-213)
+            want = hit & active & ~in_rainbow
+            Lii, enough = lphoton_volume(ctx.volume, p, d, g, ctx.vol_n_used, ctx.vol_max_dist2,
+                                         mask=want)
+            Lii = Lii / torch.clamp(torch.sum(ss, -1) / S, min=1e-9)[..., None]
+            albedo = ss / torch.clamp(sa + ss, min=1e-9)
+            Lii_term = torch.where((enough & want)[..., None], albedo * Lii, zero)
 
-        # Lv = sa Lve dt + ss (Ld + albedo Lii) dt + Tr Lv  (:215)
-        src = (sa * le + ss * (Ld + Lii_term)) * dt[..., None]
-        L = torch.where(active[..., None], src + tr * L, L)
-        # the march stops where the step's transmittance falls below
-        # 1e-3 (reference :158-165 Russian-roulettes there; the lockstep
-        # lanes stop with Tr = 0, within 1e-3 of it in expectation)
-        cut = active & (spec.y(tr) < 1e-3)
-        tr = torch.where(cut[..., None], zero, tr)
-        active = active & ~cut
+            # Lv = sa Lve dt + ss (Ld + albedo Lii) dt + Tr Lv  (:215)
+            src = (sa * le + ss * (Ld + Lii_term)) * dt[..., None]
+            L = torch.where(active[..., None], src + tr * L, L)
+            # the march stops where the step's transmittance falls below
+            # 1e-3 (reference :158-165 Russian-roulettes there; the lockstep
+            # lanes stop with Tr = 0, within 1e-3 of it in expectation)
+            cut = active & (spec.y(tr) < 1e-3)
+            tr = torch.where(cut[..., None], zero, tr)
+            active = active & ~cut
     return VolResult(L=torch.where(hit[..., None], L, zero),
                      Tr=torch.where(hit[..., None], tr, ones))

@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.geometry import Ray, coordinate_system, cross, dot, normalize
 from pbrt_tpu_torch.core.sampling import cosine_sample_hemisphere, power_heuristic
@@ -88,6 +89,7 @@ def _occluded(scene, p, wi, dist, valid, time=None):
     return scene.intersect_p(ray, coherent=True)
 
 
+@probes.spanned("path/direct")
 def estimate_direct(scene, lobes: Lobes, frame: Frame, p, wo, u_light, u1, u2,
                     active, transmittance_fn=None, time=None, mis: bool = True):
     """One-light direct illumination, light-sampling half of the MIS
@@ -223,71 +225,72 @@ def _li_path_impl(scene, ray: Ray, u_fn, max_depth: int, rr_start: int, transmit
                       torch.zeros((1,), dtype=torch.int32, device=dev)])
 
     for depth in range(max_depth + 1):
-        # dead lanes get an empty [0, -1] interval: the accelerators skip
-        # them (the flat t-pass lists only live rays on the device; the
-        # packet pipeline sorts them into all-dead tiles)
-        hit = scene.intersect(Ray(st.ray_o, st.ray_d, torch.zeros((N,), device=dev),
-                                  torch.where(st.alive, torch.full((), BIG, device=dev),
-                                              torch.full((), -1.0, device=dev)), tm),
-                              coherent=depth == 0)
-        st = st._replace(L=_add_hit_emission(scene, st, hit, depth == 0))
-        st = st._replace(L=_add_escape_emission(scene, st, st.alive & ~hit.valid, depth == 0))
-        alive = st.alive & hit.valid
-        if depth == max_depth:
-            break
+        with probes.scope("path/bounce"):
+            # dead lanes get an empty [0, -1] interval: the accelerators skip
+            # them (the flat t-pass lists only live rays on the device; the
+            # packet pipeline sorts them into all-dead tiles)
+            hit = scene.intersect(Ray(st.ray_o, st.ray_d, torch.zeros((N,), device=dev),
+                                      torch.where(st.alive, torch.full((), BIG, device=dev),
+                                                  torch.full((), -1.0, device=dev)), tm),
+                                  coherent=depth == 0)
+            st = st._replace(L=_add_hit_emission(scene, st, hit, depth == 0))
+            st = st._replace(L=_add_escape_emission(scene, st, st.alive & ~hit.valid, depth == 0))
+            alive = st.alive & hit.valid
+            if depth == max_depth:
+                break
 
-        lobes = material_lobes(eval_bsdf_params(scene, hit))
-        frame = shading_frame(scene, hit)
-        wo = -normalize(st.ray_d)
+            lobes = material_lobes(eval_bsdf_params(scene, hit))
+            frame = shading_frame(scene, hit)
+            wo = -normalize(st.ray_d)
 
-        # direct lighting at non-specular vertices
-        Ld = estimate_direct(scene, lobes, frame, hit.p, wo, u_fn(depth, 0),
-                             u_fn(depth, 1), u_fn(depth, 2),
-                             alive & has_non_specular(lobes),
-                             transmittance_fn=transmittance_fn, time=tm)
-        # carried-wavelength band filter on new light (monochromatic lanes)
-        mono = st.lam_nm > 0.0
-        Ld = torch.where(mono[..., None], spec.band_filter(Ld, st.lam_nm), Ld)
-        st = st._replace(L=st.L + st.throughput * Ld * alive[..., None])
+            # direct lighting at non-specular vertices
+            Ld = estimate_direct(scene, lobes, frame, hit.p, wo, u_fn(depth, 0),
+                                 u_fn(depth, 1), u_fn(depth, 2),
+                                 alive & has_non_specular(lobes),
+                                 transmittance_fn=transmittance_fn, time=tm)
+            # carried-wavelength band filter on new light (monochromatic lanes)
+            mono = st.lam_nm > 0.0
+            Ld = torch.where(mono[..., None], spec.band_filter(Ld, st.lam_nm), Ld)
+            st = st._replace(L=st.L + st.throughput * Ld * alive[..., None])
 
-        # continuation: BSDF sample (with dispersion wavelength pick)
-        is_disp = disp[torch.clamp(hit.mat, 0, disp.shape[0] - 1)] > 0
-        # the candidate wavelength is committed only when the sampled
-        # lobe is specular transmission (reflection does not disperse)
-        need_lambda = is_disp & (st.lam_nm < 0.0) & alive
-        bin_idx, bin_w = spec.sample_bin(st.throughput, u_fn(depth, 3))
-        new_lam = spec.bin_wavelength(bin_idx)
-        oh = spec.one_hot(bin_idx)
-        lam_cand = torch.where(need_lambda, new_lam, st.lam_nm)
+            # continuation: BSDF sample (with dispersion wavelength pick)
+            is_disp = disp[torch.clamp(hit.mat, 0, disp.shape[0] - 1)] > 0
+            # the candidate wavelength is committed only when the sampled
+            # lobe is specular transmission (reflection does not disperse)
+            need_lambda = is_disp & (st.lam_nm < 0.0) & alive
+            bin_idx, bin_w = spec.sample_bin(st.throughput, u_fn(depth, 3))
+            new_lam = spec.bin_wavelength(bin_idx)
+            oh = spec.one_hot(bin_idx)
+            lam_cand = torch.where(need_lambda, new_lam, st.lam_nm)
 
-        bs = bsdf_sample(lobes, frame, wo, u_fn(depth, 4), u_fn(depth, 5),
-                         u_fn(depth, 6), u_fn(depth, 7), lam_nm=lam_cand,
-                         u_pick=u_fn(depth, 9))
-        commit_lambda = need_lambda & bs.did_transmit
-        tp = torch.where(commit_lambda[..., None], st.throughput * oh * bin_w[..., None],
-                         st.throughput)
-        lam = torch.where(commit_lambda, new_lam, st.lam_nm)
-        cos_i = torch.abs(dot(bs.wi, frame.ns))
-        tp_new = tp * bs.f * (cos_i / torch.clamp(bs.pdf, min=1e-12))[..., None]
-        alive = alive & bs.valid & ~spec.is_black(tp_new)
+            bs = bsdf_sample(lobes, frame, wo, u_fn(depth, 4), u_fn(depth, 5),
+                             u_fn(depth, 6), u_fn(depth, 7), lam_nm=lam_cand,
+                             u_pick=u_fn(depth, 9))
+            commit_lambda = need_lambda & bs.did_transmit
+            tp = torch.where(commit_lambda[..., None], st.throughput * oh * bin_w[..., None],
+                             st.throughput)
+            lam = torch.where(commit_lambda, new_lam, st.lam_nm)
+            cos_i = torch.abs(dot(bs.wi, frame.ns))
+            tp_new = tp * bs.f * (cos_i / torch.clamp(bs.pdf, min=1e-12))[..., None]
+            alive = alive & bs.valid & ~spec.is_black(tp_new)
 
-        # Russian roulette (reference path.cpp: after bounce 3)
-        if depth >= rr_start:
-            q = torch.clamp(spec.y(tp_new) / torch.clamp(spec.y(tp), min=1e-9), 0.05, 1.0)
-            survive = u_fn(depth, 8) < q
-            tp_new = tp_new / torch.clamp(q, min=1e-9)[..., None]
-            alive = alive & survive
+            # Russian roulette (reference path.cpp: after bounce 3)
+            if depth >= rr_start:
+                q = torch.clamp(spec.y(tp_new) / torch.clamp(spec.y(tp), min=1e-9), 0.05, 1.0)
+                survive = u_fn(depth, 8) < q
+                tp_new = tp_new / torch.clamp(q, min=1e-9)[..., None]
+                alive = alive & survive
 
-        st = PathState(
-            ray_o=hit.p + bs.wi * RAY_EPS,
-            ray_d=bs.wi,
-            throughput=torch.where(alive[..., None], tp_new, zero),
-            L=st.L,
-            alive=alive,
-            prev_bsdf_pdf=bs.pdf,
-            prev_specular=bs.is_specular,
-            lam_nm=lam,
-        )
+            st = PathState(
+                ray_o=hit.p + bs.wi * RAY_EPS,
+                ray_d=bs.wi,
+                throughput=torch.where(alive[..., None], tp_new, zero),
+                L=st.L,
+                alive=alive,
+                prev_bsdf_pdf=bs.pdf,
+                prev_specular=bs.is_specular,
+                lam_nm=lam,
+            )
     return st.L
 
 

@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.error import warning
 from pbrt_tpu_torch.core.geometry import Ray, normalize
@@ -83,10 +84,11 @@ def li_emission(vol: Optional[VolumeT], ray: Ray, t_surf, pixel, sidx,
     L = torch.zeros((N, S), device=dev)
     tau_acc = torch.zeros((N, S), device=dev)
     for i in range(n_steps):
-        t = t0 + (i + u0) * dt
-        sa, ss, le, _ = sigma_at(vol, ray.o + t[..., None] * d)
-        tau_acc = tau_acc + (sa + ss) * dt[..., None]
-        L = L + torch.exp(-tau_acc) * sa * le * dt[..., None]
+        with probes.scope("volume/march_step"):
+            t = t0 + (i + u0) * dt
+            sa, ss, le, _ = sigma_at(vol, ray.o + t[..., None] * d)
+            tau_acc = tau_acc + (sa + ss) * dt[..., None]
+            L = L + torch.exp(-tau_acc) * sa * le * dt[..., None]
     Tr = torch.where(hit[..., None], torch.exp(-tau_acc), ones)
     return VolResult(L=torch.where(hit[..., None], L, torch.zeros((), device=dev)), Tr=Tr)
 
@@ -108,25 +110,26 @@ def li_single(scene, ray: Ray, t_surf, pixel, sidx, n_steps: int, seed: int = 0)
     L = torch.zeros((N, S), device=dev)
     tau_acc = torch.zeros((N, S), device=dev)
     for i in range(n_steps):
-        t = t0 + (i + u0) * dt
-        p = ray.o + t[..., None] * d
-        sa, ss, le, g = sigma_at(vol, p)
-        tau_acc = tau_acc + (sa + ss) * dt[..., None]
-        tr = torch.exp(-tau_acc)
-        L = L + tr * sa * le * dt[..., None]
-        if scene.n_lights > 0:
-            light_idx, pmf = scene.light_dist.sample_discrete(iu(pixel, sidx, i, 41, seed))
-            ls = sample_light(scene.lights, light_idx, p, iu(pixel, sidx, i, 42, seed),
-                              iu(pixel, sidx, i, 43, seed))
-            # occlusion by surfaces + attenuation through the medium
-            occ = _shadow(scene, p, ls.wi, ls.dist, hit)
-            tr_light = transmittance(vol, p, ls.wi, ls.dist, max(4, n_steps // 4),
-                                     iu(pixel, sidx, i, 44, seed))
-            ph = phase(g, -d, ls.wi)
-            contrib = (ss * tr * tr_light * ls.L
-                       * (ph / torch.clamp(ls.pdf * pmf, min=1e-12))[..., None]
-                       * dt[..., None])
-            L = L + torch.where((hit & ~occ)[..., None], contrib, zero)
+        with probes.scope("volume/march_step"):
+            t = t0 + (i + u0) * dt
+            p = ray.o + t[..., None] * d
+            sa, ss, le, g = sigma_at(vol, p)
+            tau_acc = tau_acc + (sa + ss) * dt[..., None]
+            tr = torch.exp(-tau_acc)
+            L = L + tr * sa * le * dt[..., None]
+            if scene.n_lights > 0:
+                light_idx, pmf = scene.light_dist.sample_discrete(iu(pixel, sidx, i, 41, seed))
+                ls = sample_light(scene.lights, light_idx, p, iu(pixel, sidx, i, 42, seed),
+                                  iu(pixel, sidx, i, 43, seed))
+                # occlusion by surfaces + attenuation through the medium
+                occ = _shadow(scene, p, ls.wi, ls.dist, hit)
+                tr_light = transmittance(vol, p, ls.wi, ls.dist, max(4, n_steps // 4),
+                                         iu(pixel, sidx, i, 44, seed))
+                ph = phase(g, -d, ls.wi)
+                contrib = (ss * tr * tr_light * ls.L
+                           * (ph / torch.clamp(ls.pdf * pmf, min=1e-12))[..., None]
+                           * dt[..., None])
+                L = L + torch.where((hit & ~occ)[..., None], contrib, zero)
     Tr = torch.where(hit[..., None], torch.exp(-tau_acc), ones)
     return VolResult(L=torch.where(hit[..., None], L, zero), Tr=Tr)
 

@@ -38,7 +38,7 @@ def _parser():
                     help="quarter resolution / one sample per pixel for fast iteration")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--verbose", action="store_true",
-                    help="print the statistics counters at WorldEnd")
+                    help="record spans; print the counters and spans at WorldEnd")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint", default="",
                     help="film checkpoint file (npz) for crash-resumable renders")

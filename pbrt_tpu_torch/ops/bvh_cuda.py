@@ -17,7 +17,9 @@ Port of pbrt_tpu/ops/bvh_pallas.py.
 
   Waves: A fills lists -> B sweeps -> the per-tile t bound tightens ->
   A resumes. The wave loop is a Python loop with one host sync per
-  wave (the done test).
+  wave (the done test). With tracing on (core/probes.py) a traversal is
+  an `accel/traverse` span holding `accel/phase_a`, `accel/k2` and
+  `sync/k2_done` spans.
 
 `wide_sweep` dispatches on the device: CUDA tensors launch K2 (or
 raise), CPU tensors run `wide_sweep_plain`, the same fold in torch.
@@ -27,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from pbrt_tpu_torch.accel.wide_bvh import LEAF_W, MAX_L, TILE, WideBVH
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.ops.build import check_cuda, load_kernels, raise_on_launch_error
 from pbrt_tpu_torch.ops.intersect_cuda import KEY_EMPTY, key_of_t, t_of_key
 
@@ -291,7 +294,14 @@ def _perray_candidates(wb: WideBVH, o_s, inv_s, tmin_s, t_cap, live):
     dev = o_s.device
     TC = max(1, min(64, CULL_BYTES // (TILE * B * 4)))
     live_tiles = torch.any(live.reshape(T, TILE), -1)
-    n_live = int(torch.nonzero(live_tiles)[-1, 0]) + 1 if bool(live_tiles.any()) else 0
+    n_live = 0
+    with probes.scope("sync/n_live"):
+        any_live = bool(live_tiles.any())
+    if any_live:
+        with probes.scope("sync/n_live"):
+            live_ids = torch.nonzero(live_tiles)
+        with probes.scope("sync/n_live"):
+            n_live = int(live_ids[-1, 0]) + 1
     Lt = torch.full((T, B), float("inf"), device=dev)
     for s in range(0, n_live, TC):
         e = min(s + TC, n_live)
@@ -384,20 +394,29 @@ def _compact_pairs(lst, nl):
 def _wide_t_pass_chunk(wb: WideBVH, o, d, tmin, tmax, any_hit=False, coherent=False):
     R = o.shape[0]
     T = R // TILE
-    o_s, d_s, tmin_s, tmax_s, idx_s = _sort_rays(o, d, tmin, tmax, wb.world_lo, wb.world_hi)
-    live_s = tmax_s > tmin_s
-    tmax_c = torch.where(torch.isfinite(tmax_s), tmax_s, BIG)
-    rays8 = torch.cat([o_s, d_s, tmin_s[:, None], tmax_c[:, None]], -1).contiguous()
+    with probes.scope("accel/phase_a"):
+        o_s, d_s, tmin_s, tmax_s, idx_s = _sort_rays(o, d, tmin, tmax, wb.world_lo,
+                                                     wb.world_hi)
+        live_s = tmax_s > tmin_s
+        tmax_c = torch.where(torch.isfinite(tmax_s), tmax_s, BIG)
+        rays8 = torch.cat([o_s, d_s, tmin_s[:, None], tmax_c[:, None]], -1).contiguous()
 
-    # cap the pruning bound at the world-bbox exit: no hit can lie beyond
-    # it, and it keeps miss rays from pinning their tile's bound at inf
-    inv_s = _safe_inv(d_s)
-    t_a = (wb.world_lo[None, :] - o_s) * inv_s
-    t_b = (wb.world_hi[None, :] - o_s) * inv_s
-    exit_t = torch.amin(torch.maximum(t_a, t_b), -1) * 1.001 + 1e-4
-    cap = torch.minimum(tmax_c, torch.clamp(exit_t, min=0.0))
-    t_acc = torch.where(live_s, cap, -BIG).contiguous()
-    p_acc = torch.full((R,), -1, dtype=torch.int32, device=o.device)
+        # cap the pruning bound at the world-bbox exit: no hit can lie
+        # beyond it, and it keeps miss rays from pinning their tile's
+        # bound at inf
+        inv_s = _safe_inv(d_s)
+        t_a = (wb.world_lo[None, :] - o_s) * inv_s
+        t_b = (wb.world_hi[None, :] - o_s) * inv_s
+        exit_t = torch.amin(torch.maximum(t_a, t_b), -1) * 1.001 + 1e-4
+        cap = torch.minimum(tmax_c, torch.clamp(exit_t, min=0.0))
+        t_acc = torch.where(live_s, cap, -BIG).contiguous()
+        p_acc = torch.full((R,), -1, dtype=torch.int32, device=o.device)
+        if coherent:
+            frus = _frusta(o_s, d_s, tmin_s, tmax_s, live_s, T)
+            swept = torch.zeros((T, wb.block_lo.shape[0]), dtype=torch.bool, device=o.device)
+        else:
+            cand_L, cand_b, count = _perray_candidates(wb, o_s, inv_s, tmin_s, cap, live_s)
+            ptr = torch.zeros((T,), dtype=torch.int64, device=o.device)
 
     def tile_bound():
         # per-tile farthest useful t; any-hit (shadow) queries retire a
@@ -408,27 +427,22 @@ def _wide_t_pass_chunk(wb: WideBVH, o, d, tmin, tmax, any_hit=False, coherent=Fa
             return torch.amax(torch.where(hit_lane, -BIG, cap_lane), 1)
         return torch.amax(cap_lane, 1)
 
-    def sweep(lst, nl):
-        pair_block, start, count = _compact_pairs(lst, nl)
-        wide_sweep(pair_block, start, count, rays8, wb.tris16, wb.n_blocks, t_acc, p_acc)
-
-    if coherent:
-        frus = _frusta(o_s, d_s, tmin_s, tmax_s, live_s, T)
-        swept = torch.zeros((T, wb.block_lo.shape[0]), dtype=torch.bool, device=o.device)
-        for _ in range(MAX_WAVES):
-            lst, nl, swept, done = _dense_cull(wb, frus, tile_bound(), swept)
-            sweep(lst, nl)
-            if bool(done.all()):
-                break
-    else:
-        cand_L, cand_b, count = _perray_candidates(wb, o_s, inv_s, tmin_s, cap, live_s)
-        ptr = torch.zeros((T,), dtype=torch.int64, device=o.device)
-        for _ in range(MAX_WAVES):
-            lst, nl, ptr, done = _window_cull(cand_L, cand_b, count, ptr, tile_bound(),
-                                              wb.n_blocks)
-            sweep(lst, nl)
-            if bool(done.all()):
-                break
+    # waves: Phase A fills each tile's list, K2 sweeps it, and the host
+    # reads whether every tile's list is exhausted
+    for _ in range(MAX_WAVES):
+        with probes.scope("accel/phase_a"):
+            if coherent:
+                lst, nl, swept, done = _dense_cull(wb, frus, tile_bound(), swept)
+            else:
+                lst, nl, ptr, done = _window_cull(cand_L, cand_b, count, ptr, tile_bound(),
+                                                  wb.n_blocks)
+            pair_block, start, n_pairs = _compact_pairs(lst, nl)
+        with probes.scope("accel/k2"):
+            wide_sweep(pair_block, start, n_pairs, rays8, wb.tris16, wb.n_blocks, t_acc, p_acc)
+        with probes.scope("sync/k2_done"):
+            finished = bool(done.all())
+        if finished:
+            break
 
     # padded slot -> global prim id; then undo the coherence sort
     prim = p_acc.long()
@@ -441,6 +455,7 @@ def _wide_t_pass_chunk(wb: WideBVH, o, d, tmin, tmax, any_hit=False, coherent=Fa
     return t_out, p_out
 
 
+@probes.spanned("accel/traverse")
 def wide_t_pass(wb: WideBVH, ray_o, ray_d, tmin, tmax, any_hit=False, coherent=False):
     """[R] rays -> (t [R], global prim [R] int64, -1 = miss). Pads to
     TILE multiples and traverses in chunks of CHUNK rays. any_hit:

@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 
 S = spec.N_BINS
@@ -268,7 +269,8 @@ def live_queries(pm, q, mask=None):
     live = candidate_count(pm, q) > 0
     if mask is not None:
         live = live & mask
-    return torch.nonzero(live).squeeze(1)
+    with probes.scope("sync/knn_live"):
+        return torch.nonzero(live).squeeze(1)
 
 
 class FluxResult(NamedTuple):

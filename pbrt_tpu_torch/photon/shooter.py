@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.error import info, progress, warning
 from pbrt_tpu_torch.core.geometry import Ray, dot, normalize
@@ -360,46 +361,49 @@ def build_photon_maps(scene, surf_params, vol_params, options=None) -> PhotonCtx
     aborted = False
     short = {}
     for bi in range(max_batches):
-        r = batch_fn(lane, torch.full(lane.shape, shots, dtype=torch.int64, device=dev), seed)
-        if mesh is not None:
-            r = dict(zip(r, pmesh.gather_replicated(mesh, list(r.values()))))
-        shots += B
-        batches += 1
-        pos, al, wi = r["pos"].reshape(-1, 3), r["alpha"].reshape(-1, S), r["wi"].reshape(-1, 3)
-        code = torch.where(al.sum(-1) > 0, r["cls"].reshape(-1), C_NONE)
-        rpm = r["rp"].reshape(-1) & (code != C_NONE) if final_gather else None
-        counts = torch.bincount(code, minlength=5)
-        if rpm is not None:
-            counts = torch.cat([counts, rpm.sum()[None]])
-        counts = counts.tolist()   # the batch's one host sync
-        syncs += 1
-        order = torch.argsort(code, stable=True)
-        off = np.concatenate([[0], np.cumsum(counts[:5])])
-        for c, st in stores.items():
-            st.add(order[off[c]:off[c + 1]], pos, al, wi)
-            st.count += counts[c]
-        if rpm is not None and counts[5]:
-            sel = torch.argsort((~rpm).to(torch.int8), stable=True)[:counts[5]]
-            rps.append((pos[sel], r["n"].reshape(-1, 3)[sel], r["rho_r"].reshape(-1, S)[sel],
-                        r["rho_t"].reshape(-1, S)[sel]))
-        for c, st in stores.items():
-            if st.shots_full is None and st.count >= wants[c]:
-                st.shots_full = shots
+        with probes.scope("photon/batch"):
+            r = batch_fn(lane, torch.full(lane.shape, shots, dtype=torch.int64, device=dev), seed)
+            if mesh is not None:
+                r = dict(zip(r, pmesh.gather_replicated(mesh, list(r.values()))))
+            shots += B
+            batches += 1
+            pos, al, wi = (r["pos"].reshape(-1, 3), r["alpha"].reshape(-1, S),
+                           r["wi"].reshape(-1, 3))
+            code = torch.where(al.sum(-1) > 0, r["cls"].reshape(-1), C_NONE)
+            rpm = r["rp"].reshape(-1) & (code != C_NONE) if final_gather else None
+            counts = torch.bincount(code, minlength=5)
+            if rpm is not None:
+                counts = torch.cat([counts, rpm.sum()[None]])
+            with probes.scope("sync/photon_batch"):
+                counts = counts.tolist()   # the batch's one host sync
+            syncs += 1
+            order = torch.argsort(code, stable=True)
+            off = np.concatenate([[0], np.cumsum(counts[:5])])
+            for c, st in stores.items():
+                st.add(order[off[c]:off[c + 1]], pos, al, wi)
+                st.count += counts[c]
+            if rpm is not None and counts[5]:
+                sel = torch.argsort((~rpm).to(torch.int8), stable=True)[:counts[5]]
+                rps.append((pos[sel], r["n"].reshape(-1, 3)[sel], r["rho_r"].reshape(-1, S)[sel],
+                            r["rho_t"].reshape(-1, S)[sel]))
+            for c, st in stores.items():
+                if st.shots_full is None and st.count >= wants[c]:
+                    st.shots_full = shots
 
-        # a quota is given up only at a pathological yield (reference
-        # :285-299: fewer than shots / 1024 stored after 500k shots)
-        def hopeless(stored):
-            return shots > 500000 and stored < shots // 1024
+            # a quota is given up only at a pathological yield (reference
+            # :285-299: fewer than shots / 1024 stored after 500k shots)
+            def hopeless(stored):
+                return shots > 500000 and stored < shots // 1024
 
-        nc, ni, nv = (stores[c].count for c in (C_CAUSTIC, C_INDIRECT, C_VOLUME))
-        done = ((nc >= n_caustic or hopeless(nc)) and (ni >= n_indirect or hopeless(ni))
-                and (nv >= n_volume or not has_volume or hopeless(nv)))
-        progress("Shooting photons", bi + 1 if not done else max_batches, max_batches, t0)
-        if done:
-            if hopeless(nc) or hopeless(ni) or (has_volume and hopeless(nv)):
-                aborted = True
-                warning("unable to store enough photons; aborting shooting")
-            break
+            nc, ni, nv = (stores[c].count for c in (C_CAUSTIC, C_INDIRECT, C_VOLUME))
+            done = ((nc >= n_caustic or hopeless(nc)) and (ni >= n_indirect or hopeless(ni))
+                    and (nv >= n_volume or not has_volume or hopeless(nv)))
+            progress("Shooting photons", bi + 1 if not done else max_batches, max_batches, t0)
+            if done:
+                if hopeless(nc) or hopeless(ni) or (has_volume and hopeless(nv)):
+                    aborted = True
+                    warning("unable to store enough photons; aborting shooting")
+                break
     else:
         # the cap ends the shoot with a quota unfilled; the reference
         # (and the JAX package) end silently here, short maps and all

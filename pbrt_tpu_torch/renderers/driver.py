@@ -344,6 +344,7 @@ def _resume(path: str, film, spp: int, seed: int, state) -> int:
     return 0
 
 
+@probes.spanned("render/frame")
 def render_sampler(scene: CompiledScene, ro: RenderOptions, film, camera, sampler,
                    options: dict):
     """The tile-streaming render loop, with checkpoint/resume of the
@@ -396,8 +397,10 @@ def render_sampler(scene: CompiledScene, ro: RenderOptions, film, camera, sample
         if mesh is not None:
             ids = pmesh.shard_batch(mesh, ids)
             n_real = min(max(n_real - mesh.rank * len(ids), 0), len(ids))
-        v = render_tile(scene, film, camera, sampler, li_fn, state,
-                        torch.as_tensor(ids, device=device), seed, n_real)
+        with probes.scope("render/tile"):
+            with probes.scope("sync/tile_ids"):
+                pix_ids = torch.as_tensor(ids, device=device)
+            v = render_tile(scene, film, camera, sampler, li_fn, state, pix_ids, seed, n_real)
         if v is not None:
             vetoed = vetoed + v
         probes.count("render/tiles")
@@ -413,9 +416,11 @@ def render_sampler(scene: CompiledScene, ro: RenderOptions, film, camera, sample
     if mesh is not None:
         state = film_mod.FilmState(*pmesh.reduce_sum(mesh, list(state)))
         vetoed = pmesh.reduce_sum(mesh, [vetoed])[0]
+    with probes.scope("sync/vetoed"):
+        n_vetoed = int(vetoed)
     last_stats.clear()
     last_stats.update(tiles=n_tiles - start_tile, start_tile=start_tile,
-                      adaptive_vetoed=int(vetoed))
+                      adaptive_vetoed=n_vetoed)
 
     if options.get("write", True):
         rgb = film_mod.write_image(film, state)

@@ -10,7 +10,7 @@ plugin objects, statements append host-side records
 
 Port of pbrt_tpu/scene/api.py, carried over unchanged except that
 WorldEnd calls this package's render driver (and prints the probes
-counters under --verbose).
+counters and spans under --verbose, which turns the spans on).
 """
 from __future__ import annotations
 
@@ -153,10 +153,11 @@ def pbrt_init(options: Optional[dict] = None):
     _state.state = STATE_OPTIONS_BLOCK
     _state.render_options = RenderOptions()
     _state.options = dict(options or {})
-    from pbrt_tpu_torch.core import error
+    from pbrt_tpu_torch.core import error, probes
 
     error.quiet = bool(_state.options.get("quiet", False))
     error.verbose = bool(_state.options.get("verbose", False))
+    probes.enable(error.verbose)   # --verbose prints the spans with the counters
 
 
 def pbrt_cleanup():

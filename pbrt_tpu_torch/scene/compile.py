@@ -19,6 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.error import info, warning
 from pbrt_tpu_torch.core.sampling import Distribution1D, Distribution2D
@@ -135,6 +136,7 @@ def _material_index(mat: Optional[MaterialRecord], materials: List[MaterialRecor
     return index[key]
 
 
+@probes.spanned("scene/compile")
 def compile_scene(ro: RenderOptions, device) -> CompiledScene:
     """Lower RenderOptions to device tensors (reference api.cpp:1197)."""
     materials: List[MaterialRecord] = []

@@ -83,6 +83,12 @@ NOT_PORTED = {
     ("materials/bsdf.py", "_cos_theta"): "inlined as w[..., 2]",
     ("materials/bsdf.py", "_oren_nayar_terms"): "inlined in _diffuse_f",
     ("lights/lighting.py", "_gather"): "inlined as tensor indexing",
+    ("core/probes.py", "start_trace"):
+        "a profiler exporter nothing ran; the port's spans (scope, spans) and the "
+        "benchmark's own profiler passes replace it",
+    ("core/probes.py", "stop_trace"):
+        "a profiler exporter nothing ran; the port's spans (scope, spans) and the "
+        "benchmark's own profiler passes replace it",
 }
 
 

@@ -4,7 +4,7 @@ RayDifferential, BBox), core/sampling.py (hemisphere warp and pdf, phase
 functions, HG sampling, the balance heuristic, the (0,2)-sequence, the
 stratified and Latin-hypercube patterns), core/spectrum.py (constant,
 intensity_at), core/transform.py (Transform's applies, predicates,
-equality and axis rotations; xform_point), core/probes.py (traces),
+equality and axis rotations; xform_point),
 accel/intersect.py (intersect, intersect_p), integrators/surface.py
 (li_path_psamples), volumes/registry.py (has_rainbow) and
 lights/lighting.py (LightsT.n_lights); then the cases of
@@ -51,7 +51,6 @@ from pbrt_tpu.volumes import registry as j_vol  # noqa: E402
 from pbrt_tpu_torch import bridge  # noqa: E402
 from pbrt_tpu_torch.accel import intersect as t_int  # noqa: E402
 from pbrt_tpu_torch.core import geometry as t_geo  # noqa: E402
-from pbrt_tpu_torch.core import probes  # noqa: E402
 from pbrt_tpu_torch.core import sampling as t_mc  # noqa: E402
 from pbrt_tpu_torch.core import spectrum as t_spec  # noqa: E402
 from pbrt_tpu_torch.core import threefry  # noqa: E402
@@ -252,7 +251,7 @@ def test_sampling_cases_of_test_substrate():
 
 
 # ---------------------------------------------------------------------------
-# core/spectrum.py, core/transform.py, core/probes.py
+# core/spectrum.py, core/transform.py
 
 def test_spectrum_helpers_match_jax():
     rng = np.random.RandomState(5)
@@ -303,24 +302,6 @@ def test_transform_helpers_match_jax():
     q = t_t(np.array([1.0, 1.0, 1.0]))
     np.testing.assert_allclose(t_t.inverse()(q), [1.0, 1.0, 1.0], atol=1e-6)
     assert abs(np.dot(t_t.vector([1.0, 0, 0]), t_t.normal([0, 1.0, 0]))) < 1e-6
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    """start_trace / stop_trace: a torch.profiler session written into
-    logdir as a Chrome trace holding the scopes run inside it."""
-    with pytest.raises(RuntimeError):
-        probes.stop_trace()
-    probes.start_trace(str(tmp_path))
-    try:
-        with pytest.raises(RuntimeError):
-            probes.start_trace(str(tmp_path))
-        with probes.scope("substrate/traced"):
-            torch.ones(64).sum()
-    finally:
-        probes.stop_trace()
-    files = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
-    assert len(files) == 1
-    assert "substrate/traced" in (tmp_path / files[0]).read_text()
 
 
 # ---------------------------------------------------------------------------
