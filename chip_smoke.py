@@ -1150,6 +1150,16 @@ class Patched:
             setattr(m, n, f)
 
 
+def eager_path_loop():
+    """(module, name, value) for Patched: li_path runs its shading
+    stretches eagerly, so that events around a function they call time
+    each call (a CUDA graph replays the function's kernels without
+    calling it)."""
+    from pbrt_tpu_torch.integrators import surface
+
+    return surface, "_path_graphs", lambda *args: None
+
+
 class AnyHitCounter:
     """Stands in for bvh_cuda.wide_t_pass: counts the K2 launches of
     closest-hit and of any-hit traversals."""
@@ -1319,10 +1329,10 @@ def phase_rainbowc(tmp):
 
 
 def phase_benchtex(tmp):
-    """[14]: benchtex through the CLI on the card (timed), then again with
-    CUDA events around every K2 launch and around every
-    eval_bsdf_params and eval_bump call (the texture and material
-    evaluation) -> dict."""
+    """[14]: benchtex through the CLI on the card (timed), then again,
+    its path loop eager, with CUDA events around every K2 launch and
+    around every eval_bsdf_params and eval_bump call (the texture and
+    material evaluation) -> dict."""
     from pbrt_tpu_torch.io.image import write_image
     from pbrt_tpu_torch.ops import bvh_cuda, intersect_cuda
     from pbrt_tpu_torch.scene import compile as compile_mod
@@ -1348,7 +1358,7 @@ def phase_benchtex(tmp):
     bvh_cuda.launches = 0
     with NoPlain(), Patched((bvh_cuda, "wide_sweep", k2),
                             (compile_mod, "eval_bsdf_params", params),
-                            (compile_mod, "eval_bump", bump)):
+                            (compile_mod, "eval_bump", bump), eager_path_loop()):
         _, sec_ev = render(text, "benchtex_events", tmp)
     if bvh_cuda.launches != k2_launches:
         raise RuntimeError(f"benchtex: K2 launches differ between renders: "
@@ -1438,9 +1448,9 @@ def escaped_env_check(text, img, tmp, device, rows=8):
 def phase_benchenv(tmp):
     """[16]: benchenv through the CLI on the card (timed): the bench
     geometry (K2) lit by an infinite light alone, halton, path maxdepth
-    5; the escaped camera rays checked against the map; then again with
-    CUDA events around every K2 launch, the env-map importance sampling
-    and the escape emission -> dict."""
+    5; the escaped camera rays checked against the map; then again, its
+    path loop eager, with CUDA events around every K2 launch, the
+    env-map importance sampling and the escape emission -> dict."""
     from pbrt_tpu_torch.integrators import surface
     from pbrt_tpu_torch.io.image import write_image
     from pbrt_tpu_torch.lights import lighting
@@ -1472,7 +1482,7 @@ def phase_benchenv(tmp):
     escape = LaunchTimer(surface._add_escape_emission)
     bvh_cuda.launches = 0
     with NoPlain(), Patched((bvh_cuda, "wide_sweep", k2), (lighting, "_env_direction", env_sample),
-                            (surface, "_add_escape_emission", escape)):
+                            (surface, "_add_escape_emission", escape), eager_path_loop()):
         _, sec_ev = render(text, "benchenv_events", tmp)
     if bvh_cuda.launches != k2_launches:
         raise RuntimeError(f"benchenv: K2 launches differ between renders: "
@@ -1633,7 +1643,9 @@ def phase_checkpoint(tmp):
     the CLI checkpoints every 64, so after tile 64) under --verbose, then
     again from the checkpoint file it left: the resumed image equals the
     uninterrupted one bit for bit, and the statistics counters count the
-    tiles and camera samples each render did. -> dict."""
+    tiles and camera samples each render did and the path loop's graphs
+    each captured (2 x depth + 1: each render compiles its own scene).
+    -> dict."""
     from pbrt_tpu_torch.core import probes
     from pbrt_tpu_torch.renderers import driver
 
@@ -1660,8 +1672,10 @@ def phase_checkpoint(tmp):
     if not np.array_equal(resumed.view(np.int32), full.view(np.int32)):
         raise RuntimeError(f"checkpoint: the resumed image differs on "
                            f"{int((resumed != full).any(-1).sum())} pixels")
-    want = ({"render/tiles": n_tiles, "render/camera_samples": n_pix * 4},
-            {"render/tiles": n_tiles - 64, "render/camera_samples": (n_pix - 64 * per_tile) * 4})
+    graphs = {"path/graph_captures": 2 * 3 + 1}
+    want = ({"render/tiles": n_tiles, "render/camera_samples": n_pix * 4, **graphs},
+            {"render/tiles": n_tiles - 64, "render/camera_samples": (n_pix - 64 * per_tile) * 4,
+             **graphs})
     if (c_full, c_res) != want:
         raise RuntimeError(f"checkpoint: counters {c_full}, {c_res}, expected {want}")
     return {"seconds": sec, "resumed_seconds": sec_r, "checkpoint_tile": int(z["tile"]),

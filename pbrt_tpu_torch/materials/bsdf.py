@@ -29,7 +29,6 @@ from typing import NamedTuple
 
 import torch
 
-from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.geometry import dot, normalize
 from pbrt_tpu_torch.core.sampling import INV_PI, cosine_sample_hemisphere
@@ -110,8 +109,7 @@ def fresnel_dielectric(cos_i, eta_i, eta_t):
     """Unpolarized dielectric Fresnel; cos_i may be signed (entering if >0).
     (reference core/reflection.cpp FrDiel)"""
     entering = cos_i > 0.0
-    with probes.scope("sync/fresnel_eta"):   # a host number's copy to the card
-        eta_i = torch.as_tensor(eta_i, dtype=torch.float32, device=cos_i.device)
+    # a Python number enters torch.where as a scalar: no copy to the card
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)
     ci = torch.abs(cos_i)

@@ -227,8 +227,18 @@ def integrator_uniform(pixel, sample_idx, depth: int, dim: int, seed: int = 0):
     (pixel, sample, depth, dim): the reference's Sample 1D/2D request
     arrays replaced by on-demand deterministic streams. pixel and
     sample_idx are int64 tensors of uint32 values."""
-    base = _wang_hash(pixel ^ mul32(sample_idx, 0x9E3779B9)
-                      ^ ((seed * 0x51633E2D) & M32))
+    return integrator_uniform_at(integrator_base(pixel, sample_idx, seed), depth, dim)
+
+
+def integrator_base(pixel, sample_idx, seed: int = 0):
+    """The per-lane hash of (pixel, sample, seed) that every draw of
+    integrator_uniform starts from: hashed once, it keeps the seed out
+    of the draws."""
+    return _wang_hash(pixel ^ mul32(sample_idx, 0x9E3779B9) ^ ((seed * 0x51633E2D) & M32))
+
+
+def integrator_uniform_at(base, depth: int, dim: int):
+    """integrator_uniform's draw (depth, dim) from integrator_base."""
     dmix = ((depth * 0x68BC21EB) + (dim * 0x02E5BE93)) & M32
     return u32_to_unit(_wang_hash(base ^ dmix))
 

@@ -66,6 +66,9 @@ class CompiledScene:
     alpha_textures: list = field(default_factory=list)  # alpha masks (texture or float)
     tri_alpha: object = None               # [T] int64 row of alpha_textures (-1 none)
     light_sh: dict = field(default_factory=dict)   # lmax -> the lights' SH projection
+    # (N, max_depth, rr_start) -> the path loop's CUDA graphs
+    # (integrators/surface.py PathGraphs); a copy starts without them
+    path_graphs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     # how many alpha-masked layers a single ray can punch through
     # (the reference's recursive skip is unbounded; 4 covers real scenes)
@@ -632,7 +635,11 @@ def _lower_material(mat: MaterialRecord, sg: ShadingGeom, H: int) -> BsdfParams:
     vn = sigma = zf
 
     def const_spec(name):
-        return torch.as_tensor(mat.spectra[name], device=dev).expand(H, S)
+        # copied to the card once per material and device, not per call
+        cache = mat.__dict__.setdefault("_dev_spectra", {})
+        if (name, dev) not in cache:
+            cache[(name, dev)] = torch.as_tensor(mat.spectra[name], device=dev)
+        return cache[(name, dev)].expand(H, S)
 
     if kind == "matte":
         kd = _tex_spec(mat, "Kd", sg, H, 0.5)

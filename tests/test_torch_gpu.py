@@ -384,3 +384,263 @@ def test_quadric_scene_on_card_matches_cpu(cuda, tmp_path):
     assert abs(gpu.mean() - cpu.mean()) <= 5e-3 * cpu.mean()
     rel = (np.abs(gpu - cpu) / np.maximum(np.abs(cpu), 1e-6)).max(-1)
     assert (rel <= 1e-3).mean() >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# The path loop's CUDA graphs (integrators/surface.py PathGraphs): each
+# scene's tiles through li_path with the graphs and with the same
+# stretches run eagerly, bit for bit, lane for lane
+
+GLASS = """Film "image" "integer xresolution" [64] "integer yresolution" [64]
+Sampler "lowdiscrepancy" "integer pixelsamples" [1]
+LookAt 0 0 -5  0 0 0  0 1 0
+Camera "perspective" "float fov" [45]
+SurfaceIntegrator "path" "integer maxdepth" [5]
+WorldBegin
+LightSource "point" "point from" [2 4 -4] "rgb I" [20 20 20]
+AttributeBegin
+  Material "glass" "float index" [1.52] "float Vn" [30]
+  Shape "sphere" "float radius" [1]
+AttributeEnd
+AttributeBegin
+  Translate 0 -1.2 0  Rotate -90 1 0 0
+  Material "matte" "rgb Kd" [.6 .3 .2]
+  Shape "disk" "float radius" [4]
+AttributeEnd
+WorldEnd
+"""
+
+_QUAD = '"integer indices" [0 2 1 0 3 2] "point P" [-1 0 -1  1 0 -1  1 0 1  -1 0 1]'
+
+LIGHTS = f"""Film "image" "integer xresolution" [64] "integer yresolution" [64]
+Sampler "lowdiscrepancy" "integer pixelsamples" [1]
+LookAt 0 1.5 -5  0 0.3 0  0 1 0
+Camera "perspective" "float fov" [45]
+SurfaceIntegrator "path" "integer maxdepth" [4]
+WorldBegin
+LightSource "infinite" "rgb L" [.3 .35 .4]
+AttributeBegin
+AreaLightSource "diffuse" "rgb L" [6 6 6]
+Translate 0 3 0
+Shape "trianglemesh" {_QUAD}
+AttributeEnd
+AttributeBegin
+Material "metal" "float roughness" [0.05]
+Translate -1 0.8 0
+Shape "sphere" "float radius" [0.7]
+AttributeEnd
+AttributeBegin
+Material "substrate" "rgb Kd" [.4 .2 .1]
+Translate 1 0.8 0
+Shape "sphere" "float radius" [0.7]
+AttributeEnd
+Material "plastic" "rgb Kd" [.5 .4 .3]
+Scale 4 1 4
+Shape "trianglemesh" {_QUAD}
+WorldEnd
+"""
+
+TEXTURED = f"""Film "image" "integer xresolution" [64] "integer yresolution" [64]
+Sampler "lowdiscrepancy" "integer pixelsamples" [1]
+LookAt 0 1.5 -5  0 0.3 0  0 1 0
+Camera "perspective" "float fov" [45]
+SurfaceIntegrator "path" "integer maxdepth" [3]
+WorldBegin
+LightSource "point" "point from" [2 4 -3] "rgb I" [15 15 15]
+Texture "img" "color" "imagemap" "string filename" ["tex.pfm"]
+Texture "chk" "color" "checkerboard" "float uscale" [4] "float vscale" [4] "rgb tex1" [.8 .8 .8] "rgb tex2" [.1 .1 .1]
+Texture "bmp" "float" "wrinkled" "float scale" [0.02]
+MakeNamedMaterial "a" "string type" ["matte"] "texture Kd" ["img"]
+MakeNamedMaterial "b" "string type" ["plastic"] "texture Kd" ["chk"]
+AttributeBegin
+Material "mix" "string namedmaterial1" ["a"] "string namedmaterial2" ["b"] "rgb amount" [.3 .5 .7]
+Translate -1 0.8 0
+Shape "sphere" "float radius" [0.7]
+AttributeEnd
+AttributeBegin
+Material "matte" "texture Kd" ["img"] "texture bumpmap" ["bmp"]
+Translate 1 0.8 0
+Shape "sphere" "float radius" [0.7]
+AttributeEnd
+Material "matte" "texture Kd" ["chk"]
+Scale 4 1 4
+Shape "trianglemesh" {_QUAD} "float uv" [0 0 1 0 1 1 0 1]
+WorldEnd
+"""
+
+
+def _bench_mesh_text():
+    """The sphere135k geometry (scripts/bench_scene.py): a 260 x 260 UV
+    sphere over a floor, matte, one point light, path at depth 5."""
+    from scripts.bench_scene import uv_sphere
+
+    P, idx = uv_sphere(260, 260, 1.0, (0.0, 0.4, 0.0))
+    floor = "[-12 -0.6 -12  12 -0.6 -12  12 -0.6 12  -12 -0.6 12]"
+    return ('Film "image" "integer xresolution" [64] "integer yresolution" [64]\n'
+            'Sampler "lowdiscrepancy" "integer pixelsamples" [1]\n'
+            'LookAt 0 1.2 -4  0 0.4 0  0 1 0\nCamera "perspective" "float fov" [45]\n'
+            'SurfaceIntegrator "path" "integer maxdepth" [5]\nWorldBegin\n'
+            'LightSource "point" "point from" [3 6 -4] "rgb I" [60 60 60]\n'
+            'Material "matte" "rgb Kd" [.45 .35 .65]\n'
+            'Shape "trianglemesh" "integer indices" [' + " ".join(map(str, idx.tolist()))
+            + '] "point P" [' + " ".join(f"{v:.6f}" for v in P.ravel()) + "]\n"
+            'Material "matte" "rgb Kd" [.55 .55 .5]\n'
+            f'Shape "trianglemesh" "integer indices" [0 2 1 0 3 2] "point P" {floor}\n'
+            "WorldEnd\n")
+
+
+def _write_texture(path):
+    img = np.full((8, 8, 3), 0.5, np.float32)
+    img[::2, ::2] = [0.9, 0.2, 0.1]
+    img[1::2, 1::2] = [0.1, 0.3, 0.8]
+    with open(path, "wb") as f:
+        f.write(b"PF\n8 8\n-1.0\n")
+        f.write(img[::-1].astype("<f4").tobytes())
+
+
+def _compiled(text, tmp_path, device):
+    """Scene text -> (RenderOptions, CompiledScene on `device`)."""
+    import os
+
+    from pbrt_tpu_torch.scene import api, parser
+    from pbrt_tpu_torch.scene.compile import compile_scene
+
+    _write_texture(tmp_path / "tex.pfm")
+    path = tmp_path / "scene.pbrt"
+    path.write_text(text)
+    kept = {}
+
+    class Capture:
+        def __getattr__(self, name):
+            return getattr(api, name)
+
+        def pbrt_world_end(self):
+            kept["ro"] = api.get_state().render_options
+            api.pbrt_world_end(render=False)
+
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    api.pbrt_init({"quiet": True})
+    try:
+        parser.parse_file(str(path), api=Capture())
+        return kept["ro"], compile_scene(kept["ro"], device)
+    finally:
+        api._state.__init__()
+        os.chdir(cwd)
+
+
+def _tile(ro, device, tile, n, seed):
+    """The camera rays of tile `tile` (n lanes) of the scene's film."""
+    from pbrt_tpu_torch.cameras.cameras import make_camera
+    from pbrt_tpu_torch.film import film as film_mod
+    from pbrt_tpu_torch.samplers.samplers import camera_samples, make_sampler
+
+    opts = {"seed": seed}
+    film = film_mod.make_film(ro.film_name, ro.film_params,
+                              film_mod.make_filter(ro.filter_name, ro.filter_params), opts)
+    camera = make_camera(ro.camera_name, ro.camera_params, ro.camera_to_world, film.xres,
+                         film.yres)
+    sampler = make_sampler(ro.sampler_name, ro.sampler_params, opts)
+    ids = torch.arange(tile * n, (tile + 1) * n, device=device) % (film.nx * film.ny)
+    cs = camera_samples(sampler, ids % film.nx + film.x0, ids // film.nx + film.y0,
+                        film.xres, seed)
+    ray, _ = camera.generate_rays(cs.px, cs.py, cs.u_lens1, cs.u_lens2, cs.u_time)
+    return ray, cs.pixel, torch.zeros((n,), dtype=torch.int64, device=device)
+
+
+def _graphs_vs_eager(ro, scene, device, monkeypatch, n=2048):
+    """Two seeds x two tiles through one key with the graphs, then with
+    the same stretches eager -> (graph L, eager L, counters, spans)."""
+    from pbrt_tpu_torch.core import probes
+    from pbrt_tpu_torch.integrators import surface
+
+    depth = ro.surf_integrator_params.find_one_int("maxdepth", 5)
+    tiles = [(_tile(ro, device, t, n, seed), seed) for seed in (3, 2**31 + 11)
+             for t in (0, 1)]
+
+    def render():
+        return [surface.li_path(scene, ray, pixel, sidx, max_depth=depth, seed=seed)
+                for (ray, pixel, sidx), seed in tiles]
+
+    probes.reset()
+    probes.enable(True)
+    try:
+        graphed = render()
+    finally:
+        probes.enable(False)
+    counters, spans = probes.counters(), probes.spans()
+    probes.reset()
+    with monkeypatch.context() as m:
+        m.setattr(surface.PathGraphs, "of", staticmethod(lambda *a: None))
+        eager = render()
+    return depth, graphed, eager, counters, spans
+
+
+def _assert_bit_equal(graphed, eager):
+    for a, b in zip(graphed, eager):
+        assert a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert sum(float(a.sum()) for a in graphed) > 0
+
+
+@pytest.mark.parametrize("name", ["sphere135k", "glass", "lights", "textured"])
+def test_path_graphs_match_the_eager_stretches(cuda, tmp_path, monkeypatch, name):
+    """Every lane of L bit-equal to the eager stretches', over two seeds
+    and two tiles of one key: 2 x maxdepth + 1 graphs captured once,
+    none fallen back, every later bounce replayed (path/graph spans)."""
+    text = {"sphere135k": _bench_mesh_text, "glass": lambda: GLASS,
+            "lights": lambda: LIGHTS, "textured": lambda: TEXTURED}[name]()
+    ro, scene = _compiled(text, tmp_path, cuda)
+    depth, graphed, eager, counters, spans = _graphs_vs_eager(ro, scene, cuda, monkeypatch)
+    _assert_bit_equal(graphed, eager)
+    assert counters.get("path/graph_captures", 0) == 2 * depth + 1
+    assert counters.get("path/graph_fallbacks", 0) == 0
+    assert len(scene.path_graphs) == 1
+    names = [s.name for s in spans]
+    assert names.count("path/graph") == 4 * (2 * depth + 1)
+    assert names.count("path/bounce") == 4 * (depth + 1)
+
+
+def test_path_graphs_fall_back_when_a_capture_raises(cuda, tmp_path, monkeypatch):
+    """A stretch that raises while it is captured (here: stretch B of
+    depth 0, whose bsdf_sample refuses a capturing stream) leaves its
+    key eager from that stretch on, counted once, with L bit for bit
+    the eager stretches'."""
+    from pbrt_tpu_torch.integrators import surface
+
+    ro, scene = _compiled(GLASS, tmp_path, cuda)
+    real = surface.bsdf_sample
+
+    def refuses_capture(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("refused inside a capture")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(surface, "bsdf_sample", refuses_capture)
+    depth, graphed, eager, counters, spans = _graphs_vs_eager(ro, scene, cuda, monkeypatch)
+    _assert_bit_equal(graphed, eager)
+    assert counters.get("path/graph_fallbacks", 0) == 1
+    assert counters.get("path/graph_captures", 0) == 1     # stretch A of depth 0
+    assert [k.failed for k in scene.path_graphs.values()] == [True]
+    # after the fallback a tile replays nothing
+    assert [s.name for s in spans].count("path/graph") == 1
+
+
+def test_path_graphs_refuse_a_stretch_that_syncs(cuda, tmp_path, monkeypatch):
+    """A stretch that waits on the card (here: stretch A of depth 0) is
+    caught by its warm-up under torch's sync debug mode, before any
+    capture."""
+    from pbrt_tpu_torch.integrators import surface
+
+    ro, scene = _compiled(GLASS, tmp_path, cuda)
+    real = surface.sample_light
+
+    def syncs(lights, light_idx, *args):
+        int(light_idx.max())
+        return real(lights, light_idx, *args)
+
+    monkeypatch.setattr(surface, "sample_light", syncs)
+    depth, graphed, eager, counters, _ = _graphs_vs_eager(ro, scene, cuda, monkeypatch)
+    _assert_bit_equal(graphed, eager)
+    assert counters.get("path/graph_fallbacks", 0) == 1
+    assert counters.get("path/graph_captures", 0) == 0
