@@ -65,6 +65,7 @@ def lphoton_volume(pm, p, w, g, n_used: int, max_dist2: float, mask=None):
     return res.flux * (1.0 / ((4.0 / 3.0) * math.pi * r3))[..., None], res.n_found >= 10
 
 
+@probes.spanned("volume/march")
 def li_photonvolume(scene, ctx, ray, t_surf, pixel, sidx, n_steps: int,
                     seed: int = 0) -> VolResult:
     vol = scene.volume

@@ -42,6 +42,7 @@ def pick_n_steps(vol: VolumeT, step_size: float, cap: int = 128) -> int:
     return n
 
 
+@probes.spanned("volume/transmittance")
 def transmittance(vol: Optional[VolumeT], p, w, dist, n_steps: int, u):
     """Beam transmittance between p and p + w*dist (reference
     emission.cpp Transmittance -> Exp(-tau)). [N, S]."""
@@ -70,6 +71,7 @@ def _march_span(vol: VolumeT, ray: Ray, t_surf):
     return d, hit, t0, t1
 
 
+@probes.spanned("volume/march")
 def li_emission(vol: Optional[VolumeT], ray: Ray, t_surf, pixel, sidx,
                 n_steps: int, seed: int = 0) -> VolResult:
     """Emission-only integrator (reference emission.cpp:64-110)."""
@@ -93,6 +95,7 @@ def li_emission(vol: Optional[VolumeT], ray: Ray, t_surf, pixel, sidx,
     return VolResult(L=torch.where(hit[..., None], L, torch.zeros((), device=dev)), Tr=Tr)
 
 
+@probes.spanned("volume/march")
 def li_single(scene, ray: Ray, t_surf, pixel, sidx, n_steps: int, seed: int = 0) -> VolResult:
     """Single-scattering integrator (reference single.cpp:66-140):
     march; per step accumulate emission + sigma_s * phase * Ld from one

@@ -426,13 +426,14 @@ def build_photon_maps(scene, surf_params, vol_params, options=None) -> PhotonCtx
                                      target_k=k, device=dev)
 
     t1 = time.time()
-    maps = [mk(C_CAUSTIC, max_dist, n_used), mk(C_INDIRECT, max_dist * 2.0, n_used),
-            mk(C_VOLUME, vol_max_dist, vol_n_used), mk(C_DIRECT, max_dist * 2.0, n_used)]
-    radiance = None
-    if final_gather and rps:
-        radiance = compute_radiance_map(rps, maps[0], maps[1], maps[3], n_used,
-                                        max_dist * max_dist, cell=max_dist * 2.0)
-    maps.append(radiance)
+    with probes.scope("photon/build"):
+        maps = [mk(C_CAUSTIC, max_dist, n_used), mk(C_INDIRECT, max_dist * 2.0, n_used),
+                mk(C_VOLUME, vol_max_dist, vol_n_used), mk(C_DIRECT, max_dist * 2.0, n_used)]
+        radiance = None
+        if final_gather and rps:
+            radiance = compute_radiance_map(rps, maps[0], maps[1], maps[3], n_used,
+                                            max_dist * max_dist, cell=max_dist * 2.0)
+        maps.append(radiance)
     stats = {"batches": batches, "batch": B, "shots": shots, "syncs": syncs,
              "shoot_seconds": shoot_s, "build_seconds": time.time() - t1, "aborted": aborted,
              "short": short,
