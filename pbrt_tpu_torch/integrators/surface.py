@@ -27,7 +27,7 @@ import torch
 
 from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
-from pbrt_tpu_torch.core.error import warning
+from pbrt_tpu_torch.core.graphs import StretchGraphs
 from pbrt_tpu_torch.core.geometry import Ray, coordinate_system, cross, dot, normalize
 from pbrt_tpu_torch.core.sampling import cosine_sample_hemisphere, power_heuristic
 from pbrt_tpu_torch.accel.intersect import Hit
@@ -411,36 +411,18 @@ def _li_path_impl(scene, ray: Ray, u_fn, max_depth: int, rr_start: int, transmit
     return st.L
 
 
-class PathGraphs:
+class PathGraphs(StretchGraphs):
     """The path loop's stretches of one compiled scene, lane count N,
-    max_depth and rr_start, as CUDA graphs: per depth stretch A and
-    stretch B, and stretch A alone at max_depth (2 max_depth + 1
-    graphs), sharing one memory pool.
-
-    Each stretch reads only tensors whose addresses stay put: the
-    static buffers below, which each tile refills with one copy_ a
-    field (the camera rays, the per-lane hash integrator_base, each
-    bounce's hit, each shadow traversal's answer), the constants of
-    _path_start, and the outputs of the stretches before it. Its first
-    call runs it eagerly under torch's sync debug mode "error", so that
-    a stretch that waits on the card or copies a host number to it never
-    reaches a capture (where that raises, once more after an ordinary
-    run: the first use of a device constant copies it from the host),
-    captures it and replays it; later calls replay it and return the
-    same output tensors, refilled. The graphs replay in the order they
-    were captured, and every output stays referenced here, so no later
-    capture in the shared pool writes over an output another stretch
-    still reads. A warm-up or capture that raises leaves the key eager
-    for good (counted in path/graph_fallbacks)."""
+    max_depth and rr_start, as CUDA graphs (core/graphs.py): per depth
+    stretch A and stretch B, and stretch A alone at max_depth (2
+    max_depth + 1 graphs), sharing one memory pool. Each tile refills
+    the static buffers with the camera rays, the per-lane hash
+    integrator_base, each bounce's hit and each shadow traversal's
+    answer; `start` holds the constants of _path_start."""
 
     def __init__(self, device):
-        self.device = device
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(device=device)
-        self.graphs = {}       # stretch name -> (CUDAGraph, outputs)
-        self.bufs = {}         # static buffers by name
+        super().__init__(device, "path")
         self.start = None
-        self.failed = False
 
     @staticmethod
     def of(scene, device, n: int, max_depth: int, rr_start: int):
@@ -463,79 +445,6 @@ class PathGraphs:
         if self.start is None:
             self.start = _path_start(ray)
         return ray, base
-
-    def put(self, name: str, x):
-        """Copies a tensor, or a NamedTuple of them, into the static
-        buffers `name` (made at its first use, outside every capture)."""
-        if x is None:
-            return None
-        if isinstance(x, torch.Tensor):
-            buf = self.bufs.get(name)
-            if buf is None:
-                buf = self.bufs[name] = torch.empty_like(x, memory_format=torch.contiguous_format)
-            buf.copy_(x)
-            return buf
-        return type(x)(*(self.put(f"{name}.{f}", v) for f, v in zip(x._fields, x)))
-
-    def run(self, name, fn):
-        """fn() of a stretch: replayed from its graph, captured at its
-        first call; eagerly once the key has fallen back."""
-        if self.failed:
-            return fn()
-        if name not in self.graphs:
-            try:
-                self.graphs[name] = self._capture(fn)
-            except Exception as e:    # the stretch cannot be captured: eager for good
-                self.failed = True
-                self.graphs.clear()
-                probes.count("path/graph_fallbacks")
-                warning(f"path loop: stretch {name} stays eager ({type(e).__name__}: {e})")
-                return fn()
-            probes.count("path/graph_captures")
-        graph, out = self.graphs[name]
-        with probes.scope("path/graph"):
-            graph.replay()
-        return out
-
-    def _capture(self, fn):
-        try:
-            out = _without_syncs(fn)
-        except RuntimeError:
-            fn()    # an ordinary run fills the lazy caches of device constants
-            out = _without_syncs(fn)
-        if any(t.requires_grad for t in _tensors(out)):
-            raise RuntimeError("an output needs autograd, which a replay does not record")
-        graph = torch.cuda.CUDAGraph()
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            graph.capture_begin(pool=self.pool)
-            try:
-                out = fn()
-            finally:
-                graph.capture_end()
-        current.wait_stream(self.stream)
-        return graph, out
-
-
-def _without_syncs(fn):
-    """fn() under torch's sync debug mode "error": a call that waits on
-    the card or copies a host number to it raises instead."""
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        return fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
-
-
-def _tensors(x):
-    """The tensors of a (nested) tuple of tensors and None."""
-    if isinstance(x, torch.Tensor):
-        return [x]
-    if isinstance(x, tuple):
-        return [t for v in x for t in _tensors(v)]
-    return []
 
 
 def li_direct(scene, ray: Ray, pixel, sidx, max_depth: int = 5, seed: int = 0,

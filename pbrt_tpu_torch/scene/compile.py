@@ -69,6 +69,9 @@ class CompiledScene:
     # (N, max_depth, rr_start) -> the path loop's CUDA graphs
     # (integrators/surface.py PathGraphs); a copy starts without them
     path_graphs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+    # (B, max photon depth, has_volume) -> the photon shoot's CUDA graphs
+    # (photon/shooter.py ShootGraphs); a copy starts without them
+    photon_graphs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     # how many alpha-masked layers a single ray can punch through
     # (the reference's recursive skip is unbounded; 4 covers real scenes)

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_photon_graphs import _maps_equal
+
 torch.set_num_threads(1)  # small tensors: intra-op threads only contend with the other test workers
 
 pytestmark = pytest.mark.gpu
@@ -644,3 +646,116 @@ def test_path_graphs_refuse_a_stretch_that_syncs(cuda, tmp_path, monkeypatch):
     _assert_bit_equal(graphed, eager)
     assert counters.get("path/graph_fallbacks", 0) == 1
     assert counters.get("path/graph_captures", 0) == 0
+
+
+# ---------------------------------------------------------------------------
+# The photon shoot's CUDA graphs (photon/shooter.py ShootGraphs): each
+# scene's build_photon_maps with the graphs and with the same stretches
+# run eagerly, bit for bit
+
+def _photon_text(name):
+    """rainbowc and disp as they stand; `benchphoton` (chip_smoke.py: the
+    bench geometry, so K2 and Phase A traverse) at 16^2 with its quotas
+    cut 10x-20x, so that its shoot takes 4,096-path batches."""
+    import os
+
+    import chip_smoke
+
+    if name == "benchphoton":
+        return (chip_smoke.benchphoton_scene_text(16).replace("[200000]", "[20000]")
+                .replace('"integer volumephotons" [1000000]', '"integer volumephotons" [50000]'))
+    if name == "rainbowc":
+        return chip_smoke.rainbowc_text()
+    with open(os.path.join(chip_smoke.GOLDEN_DIR, f"{name}.pbrt")) as f:
+        return f.read()
+
+
+def _shoots(ro, scene, seeds, stores=None):
+    """build_photon_maps at each seed, one frame after another ->
+    [PhotonCtx]; `stores` collects every part a store keeps, with a copy
+    taken when it was added."""
+    from pbrt_tpu_torch.photon import shooter
+
+    real_add = shooter._Store.add
+
+    def add(self, idx, *arrays):
+        n = len(self.parts)
+        real_add(self, idx, *arrays)
+        if stores is not None and len(self.parts) > n:
+            stores.append((self.parts[-1], tuple(a.clone() for a in self.parts[-1])))
+
+    shooter._Store.add = add
+    try:
+        return [shooter.build_photon_maps(scene, ro.surf_integrator_params,
+                                          ro.vol_integrator_params, {"quiet": True, "seed": s})
+                for s in seeds]
+    finally:
+        shooter._Store.add = real_add
+
+
+def _photon_graphs_vs_eager(ro, scene, monkeypatch, seeds=(3, 2**31 + 11)):
+    """The shoots at `seeds` with the graphs (the second frame replays
+    graphs captured under the first seed), then with the same stretches
+    eager -> (graphed, eager, counters, span names, stores)."""
+    from pbrt_tpu_torch.core import probes
+    from pbrt_tpu_torch.photon import shooter
+
+    stores = []
+    probes.reset()
+    probes.enable(True)
+    try:
+        graphed = _shoots(ro, scene, seeds, stores)
+    finally:
+        probes.enable(False)
+    counters, names = probes.counters(), [s.name for s in probes.spans()]
+    probes.reset()
+    with monkeypatch.context() as m:
+        m.setattr(shooter.ShootGraphs, "of", staticmethod(lambda *a: None))
+        eager = _shoots(ro, scene, seeds)
+    return graphed, eager, counters, names, stores
+
+
+@pytest.mark.parametrize("name", ["rainbowc", "disp", "benchphoton"])
+def test_photon_graphs_match_the_eager_shoot(cuda, tmp_path, monkeypatch, name):
+    """Every map (positions, powers, grid), count, shots_full and path
+    total bit for bit the eager shoot's, over two frames of two seeds:
+    1 + maxphotondepth graphs captured once, none fallen back, every
+    batch of both frames replayed (photon/graph spans); every part a
+    store kept is as it was when added, after all later replays."""
+    ro, scene = _compiled(_photon_text(name), tmp_path, cuda)
+    graphed, eager, counters, names, stores = _photon_graphs_vs_eager(ro, scene, monkeypatch)
+    for g, e in zip(graphed, eager):
+        _maps_equal(g, e)
+    depth = graphed[0].max_photon_depth
+    batches = sum(c.stats["batches"] for c in graphed)
+    assert counters.get("photon/graph_captures", 0) == 1 + depth
+    assert counters.get("photon/graph_fallbacks", 0) == 0
+    assert len(scene.photon_graphs) == 1
+    assert names.count("photon/batch") == batches
+    assert names.count("photon/graph") == batches * (1 + depth)
+    assert stores and all(all(torch.equal(a, b) for a, b in zip(part, kept))
+                          for part, kept in stores)
+    assert sum(c.stats["counts"]["direct"][0] for c in graphed) > 0
+
+
+def test_photon_graphs_refuse_a_stretch_that_syncs(cuda, tmp_path, monkeypatch):
+    """An emission that waits on the card is caught by its warm-up under
+    torch's sync debug mode, before any capture: the key falls back once
+    and the shoot is the eager one, bit for bit."""
+    from pbrt_tpu_torch.photon import shooter
+
+    ro, scene = _compiled(_photon_text("disp"), tmp_path, cuda)
+    real = shooter.sample_light_ray
+
+    def syncs(lights, light_idx, *args):
+        int(light_idx.max())
+        return real(lights, light_idx, *args)
+
+    monkeypatch.setattr(shooter, "sample_light_ray", syncs)
+    graphed, eager, counters, names, _ = _photon_graphs_vs_eager(ro, scene, monkeypatch)
+    for g, e in zip(graphed, eager):
+        _maps_equal(g, e)
+    assert counters.get("photon/graph_fallbacks", 0) == 1
+    assert counters.get("photon/graph_captures", 0) == 0
+    assert "photon/graph" not in names
+    assert [k.failed for k in scene.photon_graphs.values()] == [True]
