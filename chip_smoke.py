@@ -1151,13 +1151,13 @@ class Patched:
 
 
 def eager_path_loop():
-    """(module, name, value) for Patched: li_path runs its shading
-    stretches eagerly, so that events around a function they call time
-    each call (a CUDA graph replays the function's kernels without
-    calling it)."""
-    from pbrt_tpu_torch.integrators import surface
+    """(module, name, value) for Patched: li_path (and the photon shoot)
+    run their stretches eagerly, through the one rule for where they
+    replay, so that events around a function they call time each call
+    (a CUDA graph replays the function's kernels without calling it)."""
+    from pbrt_tpu_torch.core import graphs
 
-    return surface, "_path_graphs", lambda *args: None
+    return graphs, "graphs_for", lambda *args: graphs.EAGER
 
 
 class AnyHitCounter:

@@ -20,6 +20,12 @@ in the shared pool writes over an output another stretch still reads.
 A warm-up or capture that raises leaves the owner eager for good
 (counted in `<name>/graph_fallbacks`); each replay is a `<name>/graph`
 span and each capture counts in `<name>/graph_captures`.
+
+Where the stretches replay is one rule, `graphs_for`; everywhere else an
+owner gets EAGER, which has the graph sets' interface and runs each
+stretch as a plain call, so the owner's loop has one form. An owner's
+own precondition (the path loop's: no medium) is a plain `if` at its
+call site.
 """
 from __future__ import annotations
 
@@ -29,13 +35,50 @@ from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core.error import warning
 
 
+def graphs_for(scene, cls, lanes, key: tuple):
+    """The rule for where a loop's stretches replay -> the scene's `cls`
+    graph set for `key` (made at its first call) where the lanes are on
+    a card, autograd would record nothing, the scene object has the
+    table (CompiledScene.graphs) and the key has not fallen back; else
+    EAGER."""
+    table = getattr(scene, "graphs", None)
+    if table is None or not lanes.is_cuda or _needs_grad(scene):
+        return EAGER
+    key = (cls.name,) + key
+    if key not in table:
+        table[key] = cls(lanes.device)
+    return EAGER if table[key].failed else table[key]
+
+
+def _needs_grad(scene) -> bool:
+    """Whether autograd would record the stretches: grad mode is on and a
+    scene tensor they read requires grad (diff.apply_params)."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors((scene.geom, scene.lights, scene.volume,
+                                          scene.kd_scale, scene.meas_tables)))
+
+
+class Eager:
+    """The stretches as plain calls, behind the graph sets' interface:
+    nothing is buffered or kept, and a result is handed out as it is."""
+
+    put = staticmethod(lambda name, x: x)
+    run = keep = staticmethod(lambda name, fn: fn())
+    result = staticmethod(lambda x: x)
+
+
+EAGER = Eager()
+
+
 class StretchGraphs:
     """The CUDA graphs of one loop's stretches, sharing one memory pool;
-    `name` prefixes its span and counters ("path", "photon")."""
+    a subclass names the owner (`name` prefixes its span and counters)
+    and declares the constants it keeps."""
 
-    def __init__(self, device, name: str):
+    name = ""
+
+    def __init__(self, device):
         self.device = device
-        self.name = name
         self.pool = None       # made at the first capture
         self.stream = None
         self.graphs = {}       # stretch name -> (CUDAGraph, outputs)
@@ -54,6 +97,18 @@ class StretchGraphs:
             buf.copy_(x)
             return buf
         return type(x)(*(self.put(f"{name}.{f}", v) for f, v in zip(x._fields, x)))
+
+    def keep(self, name: str, make):
+        """The attribute `name`, made by make() at the key's first call: a
+        constant of the owner's that every replay reads."""
+        if getattr(self, name) is None:
+            setattr(self, name, make())
+        return getattr(self, name)
+
+    def result(self, x):
+        """A copy of an output for the caller to keep: the next replay
+        writes over x."""
+        return x.clone()
 
     def run(self, name, fn):
         """fn() of a stretch: replayed from its graph, captured at its

@@ -27,7 +27,7 @@ import torch
 
 from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
-from pbrt_tpu_torch.core.graphs import StretchGraphs
+from pbrt_tpu_torch.core import graphs as cuda_graphs
 from pbrt_tpu_torch.core.geometry import Ray, coordinate_system, cross, dot, normalize
 from pbrt_tpu_torch.core.sampling import cosine_sample_hemisphere, power_heuristic
 from pbrt_tpu_torch.accel.intersect import Hit
@@ -223,20 +223,20 @@ def li_path(scene, ray: Ray, pixel, sidx, max_depth: int = 5, seed: int = 0,
     """Path-traced radiance for a ray batch (reference integrators/
     path.cpp:52-123: MIS one-light, RR after bounce 3). Returns [N, S].
 
-    On a card, without a medium, the shading between the traversals
-    replays as CUDA graphs (PathGraphs); elsewhere it runs eagerly.
-    Both run the same stretches on the same values."""
-    base = integrator_base(pixel, sidx, seed)
-    graphs = _path_graphs(scene, ray, max_depth, rr_start, transmittance_fn)
-    if graphs is not None:
-        ray, base = graphs.load(ray, base)
+    Where core/graphs.py's rule allows and without a medium (a
+    transmittance traverses), the shading between the traversals replays
+    as CUDA graphs (PathGraphs); elsewhere it runs eagerly. Both run the
+    same stretches on the same values."""
+    graphs = cuda_graphs.EAGER if transmittance_fn is not None else cuda_graphs.graphs_for(
+        scene, PathGraphs, ray.o, (ray.o.shape[0], max_depth, rr_start))
+    ray = graphs.put("ray", ray)
+    base = graphs.put("base", integrator_base(pixel, sidx, seed))
 
     def u_fn(depth, dim):
         return integrator_uniform_at(base, depth, dim)
 
-    L = _li_path_impl(scene, ray, u_fn, max_depth, rr_start, transmittance_fn, graphs)
-    # a graph's output is overwritten by the next tile's replay
-    return L if graphs is None else L.clone()
+    return graphs.result(_li_path_impl(scene, ray, u_fn, max_depth, rr_start,
+                                       transmittance_fn, graphs))
 
 
 def li_path_psamples(scene, ray: Ray, u, max_depth: int = 5, transmittance_fn=None):
@@ -251,15 +251,6 @@ def li_path_psamples(scene, ray: Ray, u, max_depth: int = 5, transmittance_fn=No
         return u[:, min(depth * DPB + (dim % DPB), u.shape[1] - 1)]
 
     return _li_path_impl(scene, ray, u_fn, max_depth, max_depth + 1, transmittance_fn)
-
-
-def _path_graphs(scene, ray: Ray, max_depth: int, rr_start: int, transmittance_fn):
-    """li_path's PathGraphs, where its stretches can replay: on a card
-    and without a medium (a transmittance traverses and waits on the
-    card); else None."""
-    if transmittance_fn is not None or not ray.o.is_cuda:
-        return None
-    return PathGraphs.of(scene, ray.o.device, ray.o.shape[0], max_depth, rr_start)
 
 
 class _Shading(NamedTuple):
@@ -376,75 +367,43 @@ def _stretch_b(scene, st: PathState, hit: Hit, sh: _Shading, occluded, u_fn, dep
 
 
 def _li_path_impl(scene, ray: Ray, u_fn, max_depth: int, rr_start: int, transmittance_fn,
-                  graphs=None):
+                  graphs=cuda_graphs.EAGER):
     """The path loop: each depth traverses, runs stretch A, traces the
-    shadow rays and runs stretch B; the stretches run eagerly, or
-    through `graphs` (PathGraphs, whose static buffers then hold the
-    ray, the hits and the shadow rays' answers)."""
-    if graphs is None:
-        st, tmin, tmax = _path_start(ray)
-    else:
-        st, tmin, tmax = graphs.start
+    shadow rays and runs stretch B, the stretches through `graphs`
+    (core/graphs.py EAGER, or PathGraphs, whose static buffers then hold
+    the ray, the hits and the shadow rays' answers)."""
+    st, tmin, tmax = graphs.keep("start", lambda: _path_start(ray))
     tm = ray.time  # shutter time, constant along the path
-
-    def run(name, fn, *args):
-        return fn(*args) if graphs is None else graphs.run(name, lambda: fn(*args))
-
     for depth in range(max_depth + 1):
         with probes.scope("path/bounce"):
-            hit = scene.intersect(Ray(st.ray_o, st.ray_d, tmin, tmax, tm),
-                                  coherent=depth == 0)
-            if graphs is not None:
-                hit = graphs.put("hit", hit)
+            hit = graphs.put("hit", scene.intersect(Ray(st.ray_o, st.ray_d, tmin, tmax, tm),
+                                                    coherent=depth == 0))
             shade = depth < max_depth
-            st, sh = run(("a", depth), _stretch_a, scene, st, hit, u_fn, depth, shade, tm)
+            st, sh = graphs.run(("a", depth),
+                                lambda: _stretch_a(scene, st, hit, u_fn, depth, shade, tm))
             if not shade:
                 break
             occluded = None
             if sh.direct is not None:
                 with probes.scope("path/direct"):
                     occluded = scene.intersect_p(sh.direct.ray, coherent=True)
-                if graphs is not None:
-                    occluded = graphs.put("occluded", occluded)
-            st, tmax = run(("b", depth), _stretch_b, scene, st, hit, sh, occluded, u_fn,
-                           depth, rr_start, transmittance_fn)
+                occluded = graphs.put("occluded", occluded)
+            st, tmax = graphs.run(("b", depth), lambda: _stretch_b(
+                scene, st, hit, sh, occluded, u_fn, depth, rr_start, transmittance_fn))
     return st.L
 
 
-class PathGraphs(StretchGraphs):
+class PathGraphs(cuda_graphs.StretchGraphs):
     """The path loop's stretches of one compiled scene, lane count N,
     max_depth and rr_start, as CUDA graphs (core/graphs.py): per depth
     stretch A and stretch B, and stretch A alone at max_depth (2
     max_depth + 1 graphs), sharing one memory pool. Each tile refills
     the static buffers with the camera rays, the per-lane hash
     integrator_base, each bounce's hit and each shadow traversal's
-    answer; `start` holds the constants of _path_start."""
+    answer; `start` keeps the constants of _path_start."""
 
-    def __init__(self, device):
-        super().__init__(device, "path")
-        self.start = None
-
-    @staticmethod
-    def of(scene, device, n: int, max_depth: int, rr_start: int):
-        """The scene's PathGraphs for this key, or None where its
-        stretches run eagerly (a scene object without the table, or a
-        key that fell back)."""
-        table = getattr(scene, "path_graphs", None)
-        if table is None:
-            return None
-        key = (n, max_depth, rr_start)
-        if key not in table:
-            table[key] = PathGraphs(device)
-        g = table[key]
-        return None if g.failed else g
-
-    def load(self, ray: Ray, base):
-        """Copies a tile's camera rays and integrator_base into the
-        static buffers -> (the rays, the base) as those buffers."""
-        ray, base = self.put("ray", ray), self.put("base", base)
-        if self.start is None:
-            self.start = _path_start(ray)
-        return ray, base
+    name = "path"
+    start = None
 
 
 def li_direct(scene, ray: Ray, pixel, sidx, max_depth: int = 5, seed: int = 0,

@@ -25,11 +25,11 @@ host decides the quotas and slices the class-sorted records. The maps'
 host structure then needs their positions once (photon/map.py).
 
 A batch is split at its traversals (Shooter): the emission, then per
-depth the traversal and the stretch after it. On a card, without
-autograd, build_photon_maps replays each stretch as a CUDA graph
-(ShootGraphs, captured in the scene's first shoot); the traversals stay
-eager. Elsewhere, and in shoot_batch_fn, the same stretches run
-eagerly, with the same values.
+depth the traversal and the stretch after it. Where core/graphs.py's
+rule allows (on a card, without autograd), build_photon_maps replays
+each stretch as a CUDA graph (ShootGraphs, captured in the scene's
+first shoot); the traversals stay eager. Elsewhere, and in
+shoot_batch_fn, the same stretches run eagerly, with the same values.
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ import torch
 from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.error import info, progress, warning
-from pbrt_tpu_torch.core.graphs import StretchGraphs, tensors
+from pbrt_tpu_torch.core import graphs as cuda_graphs
 from pbrt_tpu_torch.core.geometry import Ray, dot, normalize
 from pbrt_tpu_torch.core.sampling import uniform_sample_sphere
 from pbrt_tpu_torch.lights.lighting import sample_light_ray
@@ -158,23 +158,20 @@ class Shooter:
         self.disp = torch.cat([scene.material_dispersive.to(torch.int32),
                                torch.zeros((1,), dtype=torch.int32, device=dev)])
 
-    def shoot(self, base, graphs=None) -> dict:
+    def shoot(self, base, graphs=cuda_graphs.EAGER) -> dict:
         """The batch of paths base [B] (integrator_base) -> records
-        (shoot_batch_fn): the stretches run eagerly, or through
-        `graphs` (ShootGraphs, whose static buffers then hold the base
-        and each depth's hit)."""
-        def run(name, fn):
-            return fn() if graphs is None else graphs.run(name, fn)
-
+        (shoot_batch_fn), the stretches through `graphs` (core/graphs.py
+        EAGER, or ShootGraphs, whose static buffers then hold the base and
+        each depth's hit)."""
         zf = torch.zeros(base.shape, device=self.dev)
-        p = run("emit", lambda: self.emit(base))
+        p = graphs.run("emit", lambda: self.emit(base))
         recs = ()
         for depth in range(self.max_depth):
-            hit = self.scene.intersect(Ray(p.ray_o, p.ray_d, zf, p.tmax, zf))
-            if graphs is not None:
-                # a buffer a depth: the records keep hit.p to the last stretch
-                hit = graphs.put(f"hit{depth}", hit)
-            p, recs = run(("bounce", depth), lambda: self.bounce(depth, p, hit, base, recs))
+            # a buffer a depth: the records keep hit.p to the last stretch
+            hit = graphs.put(f"hit{depth}", self.scene.intersect(Ray(p.ray_o, p.ray_d, zf,
+                                                                     p.tmax, zf)))
+            p, recs = graphs.run(("bounce", depth),
+                                 lambda: self.bounce(depth, p, hit, base, recs))
         return dict(zip(REC_KEYS, recs))
 
     def emit(self, base) -> _Paths:
@@ -327,40 +324,19 @@ def shoot_batch_fn(scene, max_depth: int, has_volume: bool,
     return batch
 
 
-class ShootGraphs(StretchGraphs):
+class ShootGraphs(cuda_graphs.StretchGraphs):
     """The shooting batch's stretches of one compiled scene, lane count
     B, max photon depth D and volume flag, as CUDA graphs
     (core/graphs.py): the emission and each depth's bounce (1 + D
     graphs), sharing one memory pool. Each batch refills the static
     buffers with its integrator_base and each depth's hit; `shooter`
-    holds the constants every replay reads."""
+    keeps the constants every replay reads."""
 
-    def __init__(self, device, shooter: Shooter):
-        super().__init__(device, "photon")
+    name = "photon"
+
+    def __init__(self, device, shooter: Optional[Shooter] = None):
+        super().__init__(device)
         self.shooter = shooter
-
-    @staticmethod
-    def of(scene, lane, max_depth: int, has_volume: bool):
-        """The scene's ShootGraphs for the batch's lanes, or None where
-        the shoot runs eagerly: off a card, with a scene tensor that
-        needs autograd, on a scene object without the table, or for a
-        key that fell back."""
-        table = getattr(scene, "photon_graphs", None)
-        if table is None or not lane.is_cuda or _needs_grad(scene):
-            return None
-        key = (lane.shape[0], max_depth, has_volume)
-        if key not in table:
-            table[key] = ShootGraphs(lane.device, Shooter(scene, max_depth, has_volume))
-        g = table[key]
-        return None if g.failed else g
-
-
-def _needs_grad(scene) -> bool:
-    """Whether autograd would record the shoot: grad mode is on and a
-    tensor the stretches read requires grad (diff.apply_params)."""
-    return torch.is_grad_enabled() and any(
-        t.requires_grad for t in tensors((scene.geom, scene.lights, scene.volume,
-                                          scene.kd_scale, scene.meas_tables)))
 
 
 class _Store:
@@ -469,9 +445,9 @@ def build_photon_maps(scene, surf_params, vol_params, options=None) -> PhotonCtx
         lane = pmesh.shard_batch(mesh, lane)
     # on a card the stretches between the traversals replay as CUDA
     # graphs, captured in the scene's first shoot (ShootGraphs)
-    graphs = ShootGraphs.of(scene, lane, max_photon_depth, has_volume)
-    shooter = (Shooter(scene, max_photon_depth, has_volume) if graphs is None
-               else graphs.shooter)
+    graphs = cuda_graphs.graphs_for(scene, ShootGraphs, lane,
+                                    (lane.shape[0], max_photon_depth, has_volume))
+    shooter = graphs.keep("shooter", lambda: Shooter(scene, max_photon_depth, has_volume))
     t0 = time.time()
     batches = 0
     aborted = False
@@ -482,7 +458,7 @@ def build_photon_maps(scene, surf_params, vol_params, options=None) -> PhotonCtx
                                                     device=dev), seed)
             # a replay writes over the last batch's records: the stores
             # below keep copies (index and cat), never these tensors
-            r = shooter.shoot(base if graphs is None else graphs.put("base", base), graphs)
+            r = shooter.shoot(graphs.put("base", base), graphs)
             if mesh is not None:
                 r = dict(zip(r, pmesh.gather_replicated(mesh, list(r.values()))))
             shots += B

@@ -66,12 +66,9 @@ class CompiledScene:
     alpha_textures: list = field(default_factory=list)  # alpha masks (texture or float)
     tri_alpha: object = None               # [T] int64 row of alpha_textures (-1 none)
     light_sh: dict = field(default_factory=dict)   # lmax -> the lights' SH projection
-    # (N, max_depth, rr_start) -> the path loop's CUDA graphs
-    # (integrators/surface.py PathGraphs); a copy starts without them
-    path_graphs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
-    # (B, max photon depth, has_volume) -> the photon shoot's CUDA graphs
-    # (photon/shooter.py ShootGraphs); a copy starts without them
-    photon_graphs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+    # (owner, key) -> a loop's CUDA graphs (core/graphs.py graphs_for:
+    # PathGraphs, ShootGraphs); a copy starts without them
+    graphs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     # how many alpha-masked layers a single ray can punch through
     # (the reference's recursive skip is unbounded; 4 covers real scenes)

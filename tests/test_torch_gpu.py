@@ -553,6 +553,7 @@ def _tile(ro, device, tile, n, seed):
 def _graphs_vs_eager(ro, scene, device, monkeypatch, n=2048):
     """Two seeds x two tiles through one key with the graphs, then with
     the same stretches eager -> (graph L, eager L, counters, spans)."""
+    from pbrt_tpu_torch.core import graphs as cuda_graphs
     from pbrt_tpu_torch.core import probes
     from pbrt_tpu_torch.integrators import surface
 
@@ -573,7 +574,7 @@ def _graphs_vs_eager(ro, scene, device, monkeypatch, n=2048):
     counters, spans = probes.counters(), probes.spans()
     probes.reset()
     with monkeypatch.context() as m:
-        m.setattr(surface.PathGraphs, "of", staticmethod(lambda *a: None))
+        m.setattr(cuda_graphs, "graphs_for", lambda *a: cuda_graphs.EAGER)
         eager = render()
     return depth, graphed, eager, counters, spans
 
@@ -597,7 +598,7 @@ def test_path_graphs_match_the_eager_stretches(cuda, tmp_path, monkeypatch, name
     _assert_bit_equal(graphed, eager)
     assert counters.get("path/graph_captures", 0) == 2 * depth + 1
     assert counters.get("path/graph_fallbacks", 0) == 0
-    assert len(scene.path_graphs) == 1
+    assert list(scene.graphs) == [("path", 2048, depth, 3)]
     names = [s.name for s in spans]
     assert names.count("path/graph") == 4 * (2 * depth + 1)
     assert names.count("path/bounce") == 4 * (depth + 1)
@@ -623,7 +624,7 @@ def test_path_graphs_fall_back_when_a_capture_raises(cuda, tmp_path, monkeypatch
     _assert_bit_equal(graphed, eager)
     assert counters.get("path/graph_fallbacks", 0) == 1
     assert counters.get("path/graph_captures", 0) == 1     # stretch A of depth 0
-    assert [k.failed for k in scene.path_graphs.values()] == [True]
+    assert [k.failed for k in scene.graphs.values()] == [True]
     # after the fallback a tile replays nothing
     assert [s.name for s in spans].count("path/graph") == 1
 
@@ -646,6 +647,39 @@ def test_path_graphs_refuse_a_stretch_that_syncs(cuda, tmp_path, monkeypatch):
     _assert_bit_equal(graphed, eager)
     assert counters.get("path/graph_fallbacks", 0) == 1
     assert counters.get("path/graph_captures", 0) == 0
+
+
+def test_path_graphs_stay_out_of_a_grad_render(cuda, tmp_path):
+    """A grad render of `path` (diff.py's use: a kd_scale that requires
+    grad, grad mode on) runs its stretches eagerly from the start: no
+    capture, no fallback, no path/graph span, and the gradient flows.
+    The same scene under no_grad replays its graphs, with L bit for bit
+    the grad render's."""
+    from pbrt_tpu_torch import diff
+    from pbrt_tpu_torch.core import probes
+    from pbrt_tpu_torch.integrators import surface
+
+    ro, scene = _compiled(GLASS, tmp_path, cuda)
+    params = diff.default_params(scene, want=("kd_scale",))
+    kd = params.kd_scale.requires_grad_()
+    sc = diff.apply_params(scene, params._replace(kd_scale=kd))
+    ray, pixel, sidx = _tile(ro, cuda, 0, 2048, 3)
+    probes.reset()
+    probes.enable(True)
+    try:
+        L = surface.li_path(sc, ray, pixel, sidx, max_depth=5, seed=3)
+        grad, = torch.autograd.grad(L.sum(), kd)
+    finally:
+        probes.enable(False)
+    counters, names = probes.counters(), [s.name for s in probes.spans()]
+    probes.reset()
+    assert not any(k.startswith("path/graph") for k in counters)
+    assert "path/graph" not in names and not sc.graphs
+    assert bool(torch.isfinite(grad).all()) and float(grad.abs().sum()) > 0
+    with torch.no_grad():
+        replayed = [surface.li_path(sc, ray, pixel, sidx, max_depth=5, seed=3) for _ in range(2)]
+    assert [k[0] for k in sc.graphs] == ["path"] and not next(iter(sc.graphs.values())).failed
+    _assert_bit_equal(replayed, [L.detach()] * 2)
 
 
 # ---------------------------------------------------------------------------
@@ -697,8 +731,8 @@ def _photon_graphs_vs_eager(ro, scene, monkeypatch, seeds=(3, 2**31 + 11)):
     """The shoots at `seeds` with the graphs (the second frame replays
     graphs captured under the first seed), then with the same stretches
     eager -> (graphed, eager, counters, span names, stores)."""
+    from pbrt_tpu_torch.core import graphs as cuda_graphs
     from pbrt_tpu_torch.core import probes
-    from pbrt_tpu_torch.photon import shooter
 
     stores = []
     probes.reset()
@@ -710,7 +744,7 @@ def _photon_graphs_vs_eager(ro, scene, monkeypatch, seeds=(3, 2**31 + 11)):
     counters, names = probes.counters(), [s.name for s in probes.spans()]
     probes.reset()
     with monkeypatch.context() as m:
-        m.setattr(shooter.ShootGraphs, "of", staticmethod(lambda *a: None))
+        m.setattr(cuda_graphs, "graphs_for", lambda *a: cuda_graphs.EAGER)
         eager = _shoots(ro, scene, seeds)
     return graphed, eager, counters, names, stores
 
@@ -730,7 +764,7 @@ def test_photon_graphs_match_the_eager_shoot(cuda, tmp_path, monkeypatch, name):
     batches = sum(c.stats["batches"] for c in graphed)
     assert counters.get("photon/graph_captures", 0) == 1 + depth
     assert counters.get("photon/graph_fallbacks", 0) == 0
-    assert len(scene.photon_graphs) == 1
+    assert [k[0] for k in scene.graphs] == ["photon"]
     assert names.count("photon/batch") == batches
     assert names.count("photon/graph") == batches * (1 + depth)
     assert stores and all(all(torch.equal(a, b) for a, b in zip(part, kept))
@@ -758,4 +792,4 @@ def test_photon_graphs_refuse_a_stretch_that_syncs(cuda, tmp_path, monkeypatch):
     assert counters.get("photon/graph_fallbacks", 0) == 1
     assert counters.get("photon/graph_captures", 0) == 0
     assert "photon/graph" not in names
-    assert [k.failed for k in scene.photon_graphs.values()] == [True]
+    assert [k.failed for k in scene.graphs.values()] == [True]

@@ -1,6 +1,6 @@
 """The path loop split at its traversals (integrators/surface.py), on
-the CPU: which calls may replay CUDA graphs (a card, li_path, no
-medium) and that the others stay eager with no `path/graph` span;
+the CPU: the calls that stay eager, with no `path/graph` span (the
+rule for where stretches replay: tests/test_torch_graphs.py);
 fresnel_dielectric's scalar eta_i; estimate_direct's two halves against
 the whole it was before the split, with and without MIS. The graphs
 themselves run on the card: tests/test_torch_gpu.py holds them bit for
@@ -9,12 +9,11 @@ bit against the eager stretches.
 The scene: an area light, an infinite light and a point light over
 plastic, metal and substrate, 16 x 16 at 1 spp.
 """
-import types
-
 import numpy as np
 import pytest
 import torch
 
+from pbrt_tpu_torch.core import graphs as cuda_graphs
 from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.geometry import dot, normalize
@@ -107,37 +106,15 @@ def _graph_spans(fn):
     return out, names
 
 
-def test_only_li_path_on_a_card_without_a_medium_asks_for_graphs(monkeypatch):
-    asked = []
-    monkeypatch.setattr(surface.PathGraphs, "of",
-                        staticmethod(lambda *a: asked.append(a) or "graphs"))
-    card = types.SimpleNamespace(o=types.SimpleNamespace(is_cuda=True, device="cuda:0",
-                                                         shape=(64, 3)))
-    host = types.SimpleNamespace(o=types.SimpleNamespace(is_cuda=False, device="cpu",
-                                                         shape=(64, 3)))
-    scene = object()
-    assert surface._path_graphs(scene, card, 5, 3, None) == "graphs"
-    assert asked == [(scene, "cuda:0", 64, 5, 3)]
-    assert surface._path_graphs(scene, card, 5, 3, lambda p, wi, d: 1.0) is None
-    assert surface._path_graphs(scene, host, 5, 3, None) is None
-    assert len(asked) == 1
-
-
-def test_a_scene_without_the_table_or_a_fallen_key_stays_eager(monkeypatch):
-    assert surface.PathGraphs.of(object(), "cuda:0", 64, 5, 3) is None
-    fallen = types.SimpleNamespace(failed=True)
-    scene = types.SimpleNamespace(path_graphs={(64, 5, 3): fallen})
-    assert surface.PathGraphs.of(scene, "cuda:0", 64, 5, 3) is None
-
-
 @pytest.mark.parametrize("how", ["cpu", "medium", "psamples"])
 def test_the_cpu_a_medium_and_mlt_replay_nothing(compiled, monkeypatch, how):
     """Each renders through the same stretches, eagerly: the image is
-    the one the eager loop gives, with no path/graph span and no
-    PathGraphs asked for."""
+    the one the eager loop gives, with no path/graph span; only li_path
+    without a medium asks the rule, which answers EAGER off a card."""
     scene, ray, pixel, sidx = compiled
-    monkeypatch.setattr(surface.PathGraphs, "of",
-                        staticmethod(lambda *a: pytest.fail("PathGraphs asked for")))
+    asked = []
+    real = cuda_graphs.graphs_for
+    monkeypatch.setattr(cuda_graphs, "graphs_for", lambda *a: asked.append(a[1]) or real(*a))
     if how == "cpu":
         L, names = _graph_spans(lambda: surface.li_path(scene, ray, pixel, sidx, 3, seed=4))
     elif how == "medium":
@@ -150,7 +127,8 @@ def test_the_cpu_a_medium_and_mlt_replay_nothing(compiled, monkeypatch, how):
     assert L.shape == (ray.o.shape[0], spec.N_BINS) and float(L.sum()) > 0
     assert "path/graph" not in names
     assert names.count("path/bounce") == 4 and names.count("path/direct") == 3
-    assert not scene.path_graphs
+    assert asked == ([surface.PathGraphs] if how == "cpu" else [])
+    assert not scene.graphs
 
 
 def test_the_split_uniforms_are_integrator_uniform():

@@ -1,12 +1,11 @@
 """The photon shoot's batch split at its traversals (photon/shooter.py
-Shooter), on the CPU: which shoots may replay CUDA graphs
-(build_photon_maps on a card, without autograd) and that the others stay
-eager with no `photon/graph` span; a key whose capture raises falls back
-for good, counted once; the split draws are integrator_uniform's; the
-stretches give the records of the whole batch as it was before the
-split, bit for bit. The graphs themselves run on the card:
-tests/test_torch_gpu.py holds them bit for bit against the eager
-stretches.
+Shooter), on the CPU: the shoots that stay eager, with no `photon/graph`
+span (the rule for where stretches replay, and a key whose capture
+raises: tests/test_torch_graphs.py); the split draws are
+integrator_uniform's; the stretches give the records of the whole batch
+as it was before the split, bit for bit. The graphs themselves run on
+the card: tests/test_torch_gpu.py holds them bit for bit against the
+eager stretches.
 
 Scenes: the `rainbowc` and `disp` goldens (tests/goldens); the shoots
 of build_photon_maps run `rainbowc` with 100 volume photons (two
@@ -21,6 +20,7 @@ import pytest
 import torch
 
 from pbrt_tpu_torch import diff
+from pbrt_tpu_torch.core import graphs as cuda_graphs
 from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.geometry import Ray, dot, normalize
@@ -121,29 +121,6 @@ def _card_lane(n=4096):
     return types.SimpleNamespace(is_cuda=True, device="cuda:0", shape=(n,))
 
 
-def test_graphs_engage_only_on_a_card_without_autograd(scenes):
-    """ShootGraphs.of: None off a card, for a scene whose tensors need
-    autograd (diff.apply_params) while grad mode is on, and for a scene
-    object without the table; on a card a graph set per key."""
-    _, scene = scenes["rainbowc"]
-    assert shooter.ShootGraphs.of(scene, torch.arange(64), 5, True) is None
-    assert not scene.photon_graphs
-    params = diff.default_params(scene)
-    scene_p = diff.apply_params(scene, diff.DiffParams(
-        **{k: (v.requires_grad_() if v is not None else None) for k, v in params._asdict().items()}))
-    assert shooter.ShootGraphs.of(scene_p, _card_lane(), 5, True) is None
-    assert not scene_p.photon_graphs
-    assert shooter.ShootGraphs.of(object(), _card_lane(), 5, True) is None
-    with torch.no_grad():
-        g = shooter.ShootGraphs.of(scene_p, _card_lane(), 5, True)
-    assert isinstance(g, shooter.ShootGraphs) and list(scene_p.photon_graphs) == [(4096, 5, True)]
-    assert g.shooter.scene is scene_p and not g.graphs
-    assert shooter.ShootGraphs.of(scene_p, _card_lane(), 5, True) is None   # grad mode on again
-    g.failed = True
-    with torch.no_grad():
-        assert shooter.ShootGraphs.of(scene_p, _card_lane(), 5, True) is None
-
-
 @pytest.mark.parametrize("how", ["cpu", "autograd", "shoot_batch_fn"])
 def test_the_cpu_autograd_and_shoot_batch_fn_replay_nothing(small_shoot, monkeypatch, how):
     """Each shoots through the same stretches, eagerly: no photon/graph
@@ -151,8 +128,8 @@ def test_the_cpu_autograd_and_shoot_batch_fn_replay_nothing(small_shoot, monkeyp
     entry) never asks for graphs."""
     ro, scene = small_shoot
     if how == "shoot_batch_fn":
-        monkeypatch.setattr(shooter.ShootGraphs, "of",
-                            staticmethod(lambda *a: pytest.fail("ShootGraphs asked for")))
+        monkeypatch.setattr(cuda_graphs, "graphs_for",
+                            lambda *a: pytest.fail("graphs asked for"))
         B = 1024
         r, names, counters = _traced(lambda: shooter.shoot_batch_fn(scene, 5, True)(
             torch.arange(B), torch.full((B,), 4096), 3))
@@ -166,9 +143,9 @@ def test_the_cpu_autograd_and_shoot_batch_fn_replay_nothing(small_shoot, monkeyp
             scene = diff.apply_params(scene, params._replace(
                 kd_scale=params.kd_scale.requires_grad_()))
             asked = []
-            real = shooter.ShootGraphs.of
-            monkeypatch.setattr(shooter.ShootGraphs, "of", staticmethod(
-                lambda sc, lane, *a: asked.append(1) or real(sc, _card_lane(lane.shape[0]), *a)))
+            real = cuda_graphs.graphs_for
+            monkeypatch.setattr(cuda_graphs, "graphs_for", lambda sc, cls, lanes, key: (
+                asked.append(1) or real(sc, cls, _card_lane(lanes.shape[0]), key)))
         ctx, names, counters = _traced(lambda: _build(ro, scene))
         assert ctx.stats["batches"] == 2 and ctx.volume.count >= SHOOT_VOLUME_PHOTONS
         assert names.count("photon/batch") == 2
@@ -176,42 +153,7 @@ def test_the_cpu_autograd_and_shoot_batch_fn_replay_nothing(small_shoot, monkeyp
             assert asked == [1] and ctx.volume.alpha.requires_grad
     assert "photon/graph" not in names
     assert not any(k.startswith("photon/graph") for k in counters)
-    assert not scene.photon_graphs
-
-
-def test_a_key_that_fell_back_stays_eager(small_shoot, monkeypatch):
-    """A stretch whose capture raises (here: the emission's) leaves its
-    key eager for good: one photon/graph_fallbacks and a warning, no
-    capture, no replay, the key marked failed (ShootGraphs.of then gives
-    None), and every map, count and path total bit for bit the eager
-    shoot's, through the static buffers."""
-    ro, scene = small_shoot
-    eager = _build(ro, scene)
-    graphs = shooter.ShootGraphs(torch.device("cpu"), shooter.Shooter(scene, 5, True))
-    tries = []
-
-    def refuses(fn):
-        tries.append(1)
-        raise RuntimeError("refused inside a capture")
-
-    monkeypatch.setattr(graphs, "_capture", refuses)
-    monkeypatch.setattr(shooter.ShootGraphs, "of",
-                        staticmethod(lambda *a: None if graphs.failed else graphs))
-    warned = []
-    monkeypatch.setattr("pbrt_tpu_torch.core.graphs.warning", warned.append)
-    ctx, names, counters = _traced(lambda: _build(ro, scene))
-    _maps_equal(ctx, eager)
-    assert counters.get("photon/graph_fallbacks", 0) == 1 and tries == [1]
-    assert counters.get("photon/graph_captures", 0) == 0
-    assert "photon/graph" not in names and names.count("photon/batch") == 2
-    assert graphs.failed and not graphs.graphs
-    assert len(warned) == 1 and "stretch emit stays eager" in warned[0]
-    monkeypatch.undo()
-    scene.photon_graphs[(4096, 5, True)] = graphs
-    try:
-        assert shooter.ShootGraphs.of(scene, _card_lane(), 5, True) is None
-    finally:
-        scene.photon_graphs.clear()
+    assert not scene.graphs
 
 
 def test_the_split_draws_are_integrator_uniform(scenes, monkeypatch):
