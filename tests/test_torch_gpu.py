@@ -793,3 +793,81 @@ def test_photon_graphs_refuse_a_stretch_that_syncs(cuda, tmp_path, monkeypatch):
     assert counters.get("photon/graph_captures", 0) == 0
     assert "photon/graph" not in names
     assert [k.failed for k in scene.graphs.values()] == [True]
+
+
+# The photon-volume march in chunks of steps (integrators/photonvolume.py)
+# against the step loop of tests/test_torch_march_chunks.py, on the card
+
+def _march_vs_loop(scene, ctx, ray, t_surf, pixel, sidx, n_steps, seed, monkeypatch):
+    """The chunked march, counting its K1 launches and chunks, and the
+    step loop on the same inputs -> (chunked, loop, launches, chunks)."""
+    from pbrt_tpu_torch.core import probes
+    from pbrt_tpu_torch.integrators import photonvolume as t_pv
+    from pbrt_tpu_torch.ops import intersect_cuda
+    from test_torch_march_chunks import step_loop
+
+    launches = [0]
+    real = intersect_cuda.tri_t_pass_cuda
+
+    def counted(*args):
+        launches[0] += 1
+        return real(*args)
+
+    probes.reset()
+    steps_a_chunk = t_pv.chunk_steps(ray.o.shape[0], n_steps, ray.o.device)
+    with monkeypatch.context() as m:
+        m.setattr(intersect_cuda, "tri_t_pass_cuda", counted)
+        got = t_pv.li_photonvolume(scene, ctx, ray, t_surf, pixel, sidx, n_steps, seed)
+        torch.cuda.synchronize()
+    chunks = probes.counters().get("volume/march_chunks", 0)
+    probes.reset()
+    assert chunks == -(-n_steps // steps_a_chunk)
+    ref, _ = step_loop(scene, ctx, ray, t_surf, pixel, sidx, n_steps, seed)
+    return got, ref, launches[0], chunks
+
+
+@pytest.mark.parametrize("name", ["rainbowc", "photon"])
+def test_march_chunks_match_the_step_loop(cuda, tmp_path, monkeypatch, name):
+    """rainbowc's two tiles of 16,384 lanes (128 steps) over a shoot's
+    maps: L and Tr bit for bit the step loop's. PHOTON_SCENE's 256 rays
+    (12 steps) over a volume map with live kNN queries: Tr bit for bit,
+    L within 1e-6 relative. The kNN's flux, torch.einsum("bks,bk->bs")
+    in photon/map.py, is a batched matmul whose rows round differently
+    at another batch count on the card (the chunk's 2,818 live queries
+    against a step's ~240: up to 3.3e-7 relative, from equal inputs);
+    rainbowc's rainbow region masks its lookups. Each chunk `chunk_steps`
+    sizes makes one K1 launch (its shadow rays)."""
+    from pbrt_tpu_torch.integrators.volume import pick_n_steps
+    from pbrt_tpu_torch.photon import shooter
+    from pbrt_tpu_torch.renderers import driver
+    from test_torch_march_chunks import assert_bitwise, camera_rays, volume_ctx
+    from photon_scenes import PHOTON_SCENE
+
+    if name == "photon":
+        ro, scene = _compiled(PHOTON_SCENE, tmp_path, cuda)
+        ray, _, pixel, sidx = camera_rays(scene, cuda)
+        ctx = volume_ctx(device=cuda)
+        tiles = [(ray, pixel, sidx)]
+        n_steps, seed = 12, 2
+    else:
+        ro, scene = _compiled(_photon_text("rainbowc"), tmp_path, cuda)
+        seed = 2**31 + 7
+        ctx = shooter.build_photon_maps(scene, ro.surf_integrator_params,
+                                        ro.vol_integrator_params, {"quiet": True, "seed": seed})
+        tiles = []
+        for t in range(2):   # 8,192 pixels x 2 spp a tile
+            ray, pixel, _ = _tile(ro, cuda, t, 8192, seed)
+            tiles.append((ray, pixel, torch.arange(2, device=cuda).repeat(8192)))
+        n_steps = pick_n_steps(scene.volume, ro.vol_integrator_params.find_one_float(
+            "stepsize", 1.0))
+        assert n_steps == 128
+    for ray, pixel, sidx in tiles:
+        t_surf, _ = driver.first_hit_t(scene, ray)
+        got, ref, launches, chunks = _march_vs_loop(scene, ctx, ray, t_surf, pixel, sidx,
+                                                    n_steps, seed, monkeypatch)
+        if name == "rainbowc":
+            assert_bitwise(got, ref)
+        else:
+            assert torch.equal(got.Tr.view(torch.int32), ref.Tr.view(torch.int32))
+            torch.testing.assert_close(got.L, ref.L, rtol=1e-6, atol=0.0)
+        assert launches == chunks and float(got.L.sum()) > 0
