@@ -38,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core.geometry import Ray, normalize
 from pbrt_tpu_torch.core.transform import xform_normal, xform_point_affine, xform_vector
 from pbrt_tpu_torch.shapes.registry import (
@@ -309,11 +310,13 @@ def quad_candidates(qtype, params, o, d, tmin, tmax, present=None):
     return t, ok0 | ok1
 
 
+@probes.spanned("accel/quad")
 def quad_t_pass(geom: SceneGeom, ray: Ray, t_best, prim_best):
     """Fold the quadrics into an existing (t, prim) accumulator (a
     triangle t-pass's result; prim -1 = no hit so far). A quadric must
     be strictly nearer to win, so a triangle keeps a tie; among quadrics
-    at equal t the lowest index wins. Returns (t, prim int64)."""
+    at equal t the lowest index wins. Returns (t, prim int64). One
+    `accel/quad` span a call while tracing is on."""
     T = geom.n_tris
     dev = ray.o.device
     big = torch.full((), BIG, device=dev)

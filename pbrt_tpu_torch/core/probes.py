@@ -137,12 +137,15 @@ class _Scope:
         if stack is None:
             stack = _local.stack = []
         self.rf = torch.profiler.record_function(self.name)
-        rec = [self.name, time.time_ns(), None, stack[-1] if stack else -1]
+        rec = self.rec = [self.name, None, None, stack[-1] if stack else -1]
+        # the clock is read right before the profiler's event opens, and
+        # the span's bookkeeping comes after: the span starts no later
+        # than its event, and as close to it as the process allows
+        rec[1] = time.time_ns()
+        self.rf.__enter__()
         with _lock:
             stack.append(len(_spans))
             _spans.append(rec)
-        self.rec = rec
-        self.rf.__enter__()
 
     def __exit__(self, *exc):
         self.rf.__exit__(*exc)

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from pbrt_tpu_torch.core import probes
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.geometry import Ray, coordinate_system, dot, normalize
 from pbrt_tpu_torch.core.sampling import power_heuristic, uniform_sample_cone
@@ -54,22 +55,27 @@ def lphoton_surface(pm, lobes, frame, p, wo, n_used: int, max_dist2: float, mask
     """Surface radiance estimate from a photon map (reference
     photonmap.cpp LPhoton): Simpson-kernel flux split by hemisphere
     against Nf = Faceforward(ns, wo); reflected flux x rho_r / pi plus
-    transmitted flux x rho_t / pi (:88-103). [N, S]."""
+    transmitted flux x rho_t / pi (:88-103). [N, S]. A call that reads
+    a map is one `photon/lookup` span while tracing is on, and adds its
+    live queries to the counter `photon/lookup_queries`."""
     if pm is None:
         return torch.zeros(p.shape[:-1] + (S,), device=p.device)
-    sgn = torch.where(dot(wo, frame.ns) >= 0.0, 1.0, -1.0)   # Nf orientation
+    with probes.scope("photon/lookup"):
+        sgn = torch.where(dot(wo, frame.ns) >= 0.0, 1.0, -1.0)   # Nf orientation
 
-    def weight(wix, wiy, wiz, d2, valid, r2, ns, sg):
-        kern = _simpson_kernel(d2, r2[:, None])
-        cosn = (wix * ns[:, 0:1] + wiy * ns[:, 1:2] + wiz * ns[:, 2:3]) * sg[:, None]
-        front = cosn > 0.0
-        zero = torch.zeros((), device=kern.device)
-        return torch.stack([torch.where(front, kern, zero), torch.where(front, zero, kern)], -1)
+        def weight(wix, wiy, wiz, d2, valid, r2, ns, sg):
+            kern = _simpson_kernel(d2, r2[:, None])
+            cosn = (wix * ns[:, 0:1] + wiy * ns[:, 1:2] + wiz * ns[:, 2:3]) * sg[:, None]
+            front = cosn > 0.0
+            zero = torch.zeros((), device=kern.device)
+            return torch.stack([torch.where(front, kern, zero), torch.where(front, zero, kern)],
+                               -1)
 
-    res = pmap.knn_weighted_flux(pm, p, n_used, max_dist2, weight, extras=(frame.ns, sgn),
-                                 mask=mask, n_channels=2)
-    rho_r, rho_t = rho_proxies(lobes)
-    return (res.flux[:, 0] * rho_r + res.flux[:, 1] * rho_t) * INV_PI
+        res = pmap.knn_weighted_flux(pm, p, n_used, max_dist2, weight, extras=(frame.ns, sgn),
+                                     mask=mask, n_channels=2)
+        probes.count("photon/lookup_queries", int(res.n_live))
+        rho_r, rho_t = rho_proxies(lobes)
+        return (res.flux[:, 0] * rho_r + res.flux[:, 1] * rho_t) * INV_PI
 
 
 def li_photonmap(scene, ctx, ray: Ray, pixel, sidx, max_depth: int = 5, seed: int = 0,

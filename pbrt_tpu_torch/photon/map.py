@@ -278,6 +278,7 @@ class FluxResult(NamedTuple):
     n_found: torch.Tensor   # [Q] int64
     r2_norm: torch.Tensor   # [Q] shrunk kernel radius (surface contract)
     r2_found: torch.Tensor  # [Q] found-set max dist2 (volume contract)
+    n_live: torch.Tensor    # [] int64 on the host: the queries searched (live_queries)
 
 
 def knn_weighted_flux(pm: Optional[PhotonMap], q, k: int, max_dist2: float, weight_fn,
@@ -295,11 +296,13 @@ def knn_weighted_flux(pm: Optional[PhotonMap], q, k: int, max_dist2: float, weig
     out = FluxResult(flux=torch.zeros(fshape, device=dev),
                      n_found=torch.zeros((Q,), dtype=torch.int64, device=dev),
                      r2_norm=torch.full((Q,), max(max_dist2, 1e-12), device=dev),
-                     r2_found=torch.full((Q,), max(max_dist2, 1e-12), device=dev))
+                     r2_found=torch.full((Q,), max(max_dist2, 1e-12), device=dev),
+                     n_live=torch.zeros((), dtype=torch.int64))
     if pm is None or Q == 0:
         return out
     cap = default_cap(k)
     live = live_queries(pm, q, mask)
+    out = out._replace(n_live=torch.tensor(live.shape[0]))
     block = block or query_block(k, cap, dev)
     for s in range(0, live.shape[0], block):
         ids = live[s:s + block]

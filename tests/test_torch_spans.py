@@ -3,7 +3,8 @@ packet traversal: off, a render records nothing and never enters
 torch.profiler.record_function; on, the spans form one well-formed tree
 a frame, count the tiles, bounces, waves and their done tests, leave the
 image bit for bit as it was, and bracket the profiler's events of the
-same names (the profiler stamps its events with time.time_ns's clock).
+same names (the profiler stamps its events with time.time_ns's clock);
+the scene opens no quadric-fold or photon-lookup span.
 
 The scene: a 128-triangle matte sphere over a two-triangle floor, one
 point light, `path` at depth 2, 32 x 32 at 1 spp in 4 tiles of 256
@@ -239,3 +240,12 @@ def test_spans_nest_and_reset_clears_them():
     assert n == 1 and own <= tot
     probes.reset()
     assert probes.spans() == [] and probes.counters() == {}
+
+
+def test_no_quadric_fold_or_photon_lookup_span(renders):
+    """The sphere scene has no quadric and no photon map: neither the
+    quadric fold's span nor the surface lookup's opens."""
+    names = set(_names(renders["spans"]))
+    assert "render/frame" in names
+    assert not names & {"accel/quad", "photon/lookup"}
+    assert "photon/lookup_queries" not in renders["counters"]
